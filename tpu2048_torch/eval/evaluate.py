@@ -1,0 +1,195 @@
+"""Batched evaluation, the port of :mod:`tpu2048.eval.evaluate` (fast
+engine).
+
+Plays full games under a policy on the fast env and collects the score,
+max-tile, length and per-action distributions. The env auto-resets finished
+boards, so each lane's FIRST completion is latched and its free restarts are
+left out of the action counts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from tpu2048_torch.env import fast as fastlib
+from tpu2048_torch.env.env import SHAPED, EnvConfig
+from tpu2048_torch.ops import board as board_ops
+from tpu2048_torch.ops.step_kernel import from_cell_major
+
+# Steps between host checks of "every game is over", as in the JAX harness:
+# a batch plays whole chunks, so max_steps=64 plays 96 steps.
+STEPS_PER_CALL = 32
+
+
+@dataclasses.dataclass
+class Policy:
+    """A policy: a function of ``(params, boards, legal_mask)`` returning
+    ``(B,)`` int32 actions, and the weights it needs."""
+
+    fn: Callable
+    params: object = ()
+
+    def __call__(self, boards, legal_mask):
+        return self.fn(self.params, boards, legal_mask)
+
+
+def as_policy(policy) -> Policy:
+    """Wrap a bare ``(boards, legal_mask)`` callable (no weights)."""
+    if isinstance(policy, Policy):
+        return policy
+    return Policy(fn=lambda p, b, m: policy(b, m))
+
+
+def _greedy(model, boards, legal_mask):
+    with torch.inference_mode():
+        q = model(boards)
+    q_legal = torch.where(legal_mask, q, -torch.inf)
+    return torch.where(
+        legal_mask.any(-1), q_legal.argmax(-1), q.argmax(-1)
+    ).to(torch.int32)
+
+
+def greedy_dqn_policy(model: torch.nn.Module) -> Policy:
+    """Argmax of Q over the legal moves (GameDemo.py:288-316); the module is
+    put in eval mode (no dropout)."""
+    return Policy(fn=_greedy, params=model.eval())
+
+
+@dataclasses.dataclass
+class EvalResult:
+    scores: np.ndarray  # (N,) final episode merge scores
+    max_tiles: np.ndarray  # (N,) final max tile values
+    lengths: np.ndarray  # (N,) episode lengths
+    # (4,) total L/U/R/D actions over live steps.
+    action_counts: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(4, np.int64)
+    )
+    batch_steps: int = 0  # batched env steps played: one kernel launch each
+    env_steps: int = 0  # lane steps played, finished lanes included
+    seconds: float = 0.0  # wall time of the games, results on the host
+
+    @property
+    def tile_distribution(self) -> Dict[int, int]:
+        vals, counts = np.unique(self.max_tiles, return_counts=True)
+        return {int(v): int(c) for v, c in zip(vals, counts)}
+
+    def summary(self) -> dict:
+        """The JAX harness's summary, plus the step counts and seconds."""
+        total_actions = max(int(self.action_counts.sum()), 1)
+        return {
+            "games": int(len(self.scores)),
+            "score_mean": float(self.scores.mean()),
+            "score_std": float(self.scores.std()),
+            "score_max": int(self.scores.max()),
+            "length_mean": float(self.lengths.mean()),
+            "max_tile_distribution": self.tile_distribution,
+            "best_tile": int(self.max_tiles.max()),
+            "win_rate_2048": float((self.max_tiles >= 2048).mean()),
+            "action_counts": {
+                k: int(c) for k, c in zip("LURD", self.action_counts)
+            },
+            "action_fractions": {
+                k: round(float(c) / total_actions, 4)
+                for k, c in zip("LURD", self.action_counts)
+            },
+            "batch_steps": self.batch_steps,
+            "env_steps": self.env_steps,
+            "seconds": self.seconds,
+        }
+
+
+def evaluate(
+    policy,
+    num_games: int,
+    bits,
+    env_config: EnvConfig = EnvConfig(reward="simple", auto_reset=False),
+    batch_size: int = 512,
+    max_steps: int = 4000,
+    engine: str = "auto",
+) -> EvalResult:
+    """Play ``num_games`` full games under ``policy``; collect stats.
+
+    ``bits`` is the fast env's bit source (:mod:`tpu2048_torch.env.fast`);
+    the games run on its device. Only the fast engine is ported:
+    ``engine="lax"``, and "auto" on an env the kernel does not implement,
+    raise.
+    """
+    engine = fastlib.resolve_engine(env_config, engine,
+                                    require_auto_reset=False)
+    if engine != "fast":
+        raise NotImplementedError("engine='lax' is not yet ported")
+    return _evaluate_fast(as_policy(policy), num_games, bits, env_config,
+                          batch_size, max_steps)
+
+
+def _evaluate_fast(policy: Policy, num_games, bits, env_config, batch_size,
+                   max_steps) -> EvalResult:
+    """One kernel launch per step; the first completion of each lane is
+    latched (score = pre-step episode score + the terminal move's merge
+    score; tile and length from the terminal timestep)."""
+    fcfg = fastlib.FastEnvConfig(
+        terminal_bonus=env_config.terminal_bonus,
+        shaped=env_config.reward == SHAPED,
+    )
+    start = time.perf_counter()
+    scores: List[np.ndarray] = []
+    tiles: List[np.ndarray] = []
+    lengths: List[np.ndarray] = []
+    action_counts = np.zeros(4, np.int64)
+    batch_steps = env_steps = 0
+    remaining = num_games
+    while remaining > 0:
+        b = min(batch_size, remaining)
+        state = fastlib.fast_reset(bits, b)
+        device = state.boards.device
+        actions_range = torch.arange(4, device=device)
+        done = torch.zeros(b, dtype=torch.bool, device=device)
+        final_score = torch.zeros(b, dtype=torch.int32, device=device)
+        final_tile = torch.zeros(b, dtype=torch.int32, device=device)
+        final_len = torch.zeros(b, dtype=torch.int32, device=device)
+        act_counts = torch.zeros(4, dtype=torch.int64, device=device)
+        for _ in range(max_steps // STEPS_PER_CALL + 1):
+            for _ in range(STEPS_PER_CALL):
+                actions = policy(from_cell_major(state.boards), state.legal)
+                live = (actions.unsqueeze(-1) == actions_range) & ~done[:, None]
+                act_counts += live.sum(0)
+                new_state, ts = fastlib.fast_step(fcfg, state, bits, actions,
+                                                  need_legal=True)
+                newly = ts.done & ~done
+                final_score = torch.where(newly, state.score + ts.merge_score,
+                                          final_score)
+                final_tile = torch.where(newly, ts.max_number, final_tile)
+                final_len = torch.where(newly, ts.episode_steps, final_len)
+                done = done | ts.done
+                state = new_state
+            batch_steps += STEPS_PER_CALL
+            env_steps += STEPS_PER_CALL * b
+            if bool(done.all()):
+                break
+        # Any game still running at the end records its current standing.
+        final_score = torch.where(done, final_score, state.score)
+        final_tile = torch.where(
+            done, final_tile,
+            board_ops.max_tile_value(from_cell_major(state.boards)),
+        )
+        final_len = torch.where(done, final_len, state.episode_steps)
+        scores.append(final_score.cpu().numpy())
+        tiles.append(final_tile.cpu().numpy())
+        lengths.append(final_len.cpu().numpy())
+        action_counts += act_counts.cpu().numpy()
+        remaining -= b
+
+    return EvalResult(
+        scores=np.concatenate(scores),
+        max_tiles=np.concatenate(tiles),
+        lengths=np.concatenate(lengths),
+        action_counts=action_counts,
+        batch_steps=batch_steps,
+        env_steps=env_steps,
+        seconds=time.perf_counter() - start,
+    )

@@ -1,0 +1,188 @@
+"""Multi-kernel CNN Q-network, the port of :mod:`tpu2048.models.dqn`.
+
+Three blocks of four parallel convolutions (k = 1..4, ``features/4`` filters
+each, SAME padding, concatenated, ReLU), then Flatten -> Dense(hidden, ReLU)
+-> Dropout -> Dense(4). The input is ``(B, 4, 4)`` int8 exponent boards,
+one-hot encoded inside the module.
+
+The module keeps the JAX package's numerics: the convolutions and the
+hidden layer take their inputs and weights in ``dtype`` (bf16 by default)
+and add the bias in ``dtype``; the head runs in float32 on float32
+parameters. Flatten runs in NHWC order, as the flax module flattens, so the
+dense weights carry over unpermuted. Convolutions and matrix products are
+library calls (cuDNN/cuBLAS), as they are XLA ops in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from tpu2048_torch.utils.device import resolve_device
+
+NUM_TILE_CHANNELS = 16  # one-hot depth, Dqn8:274
+KERNEL_SIZES = (1, 2, 3, 4)
+# TF/XLA SAME padding on a size-4 axis: (before, after) for each kernel size.
+SAME_PADS = {1: (0, 0), 2: (0, 1), 3: (1, 1), 4: (1, 2)}
+# flax's lecun_normal draws a normal truncated to [-2, 2] and divides by its
+# standard deviation, this constant, so the weights have variance 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+class MultiKernelConvBlock(nn.Module):
+    """Four parallel convs (k = 1..4), concat, ReLU (``fused=False`` path of
+    ``tpu2048.models.dqn.MultiKernelConvBlock``)."""
+
+    def __init__(self, in_channels: int, features: int = 2048,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        d = features // 4
+        self.dtype = dtype
+        self.convs = nn.ModuleList(
+            nn.Conv2d(in_channels, d, k) for k in KERNEL_SIZES
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, C, 4, 4)`` NCHW in ``dtype`` -> ``(B, features, 4, 4)``."""
+        outs = []
+        for k, conv in zip(KERNEL_SIZES, self.convs):
+            before, after = SAME_PADS[k]
+            y = F.conv2d(F.pad(x, (before, after, before, after)),
+                         conv.weight.to(self.dtype))
+            outs.append(y + conv.bias.to(self.dtype)[:, None, None])
+        return F.relu(torch.cat(outs, dim=1))
+
+
+class DQNCNN(nn.Module):
+    """Q-network over ``(B, 4, 4)`` int8 exponent boards -> ``(B, 4)`` f32."""
+
+    def __init__(self, action_space: int = 4, features: int = 2048,
+                 hidden: int = 1024, dropout_rate: float = 0.5,
+                 num_blocks: int = 3, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.blocks = nn.ModuleList(
+            MultiKernelConvBlock(NUM_TILE_CHANNELS if i == 0 else features,
+                                 features, dtype)
+            for i in range(num_blocks)
+        )
+        self.dense = nn.Linear(16 * features, hidden)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.head = nn.Linear(hidden, action_space)
+
+    def forward(self, boards: torch.Tensor) -> torch.Tensor:
+        # One-hot by comparison: an exponent >= 16 gives a zero vector, as
+        # jax.nn.one_hot does (F.one_hot would raise).
+        channels = torch.arange(NUM_TILE_CHANNELS, device=boards.device)
+        x = (boards.to(torch.int64).unsqueeze(-1) == channels).to(self.dtype)
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        for block in self.blocks:
+            x = block(x)
+        x = x.permute(0, 2, 3, 1).flatten(1)  # flatten in NHWC order
+        x = F.relu(F.linear(x, self.dense.weight.to(self.dtype))
+                   + self.dense.bias.to(self.dtype))
+        x = self.dropout(x)
+        return self.head(x.to(torch.float32))
+
+
+def create_model(config, device=None) -> DQNCNN:
+    """Build the network from a DQNConfig-like object on ``device``:
+    ``cuda`` unless another device is named (``"meta"`` allocates nothing).
+
+    In float32 (``bf16=False``) this sets ``torch.backends.cudnn.allow_tf32``
+    and ``torch.backends.cuda.matmul.allow_tf32`` to False, process-wide:
+    cuDNN would otherwise run float32 convolutions in TF32, which keeps about
+    three decimal digits where the JAX reference keeps float32.
+    """
+    if getattr(config, "fused_conv", False):
+        raise NotImplementedError("fused_conv=True is not yet ported")
+    dtype = torch.bfloat16 if config.bf16 else torch.float32
+    if dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with resolve_device(device):
+        return DQNCNN(
+            action_space=4,
+            features=config.features,
+            hidden=config.hidden,
+            dropout_rate=config.dropout,
+            num_blocks=config.num_blocks,
+            dtype=dtype,
+        )
+
+
+@torch.no_grad()
+def init_params(module: DQNCNN, generator: torch.Generator) -> DQNCNN:
+    """Lecun-normal weights (flax's initializer) and zero biases, drawn from
+    ``generator`` (on the module's device), in place; returns ``module``."""
+    for sub in module.modules():
+        if isinstance(sub, (nn.Conv2d, nn.Linear)):
+            w = sub.weight
+            std = math.sqrt(1.0 / (w[0].numel())) / _TRUNC_STD
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            nn.init.zeros_(sub.bias)
+    return module
+
+
+def param_count(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+@torch.no_grad()
+def load_flax_params(module: DQNCNN, params) -> DQNCNN:
+    """Load the JAX package's parameter tree into ``module``, in place.
+
+    ``params`` is the flax ``params`` dict as numpy arrays:
+    ``block{i}/conv{k}x{k}_kernel|bias`` (HWIO kernels), ``dense/kernel|bias``
+    and ``head/kernel|bias`` (``(in, out)`` kernels). Conv kernels go to
+    OIHW and dense kernels are transposed. Raises on a missing, extra or
+    misshapen entry.
+    """
+    expected = {f"block{i}" for i in range(len(module.blocks))} | {"dense",
+                                                                   "head"}
+    if set(params) != expected:
+        raise ValueError(f"parameter tree has {sorted(params)}, the module "
+                         f"expects {sorted(expected)}")
+    state = {}
+    for i in range(len(module.blocks)):
+        block = params[f"block{i}"]
+        for j, k in enumerate(KERNEL_SIZES):
+            state[f"blocks.{i}.convs.{j}.weight"] = np.transpose(
+                block[f"conv{k}x{k}_kernel"], (3, 2, 0, 1))
+            state[f"blocks.{i}.convs.{j}.bias"] = block[f"conv{k}x{k}_bias"]
+    for name in ("dense", "head"):
+        state[f"{name}.weight"] = np.transpose(params[name]["kernel"])
+        state[f"{name}.bias"] = params[name]["bias"]
+    own = module.state_dict()
+    for key, value in state.items():
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"{key}: file has {tuple(value.shape)}, module "
+                             f"has {tuple(own[key].shape)}")
+        own[key].copy_(torch.from_numpy(np.array(value, np.float32)))
+    return module
+
+
+@torch.no_grad()
+def to_flax_params(module: DQNCNN):
+    """The inverse of :func:`load_flax_params`: the module's weights as the
+    flax parameter tree of numpy float32 arrays."""
+    def host(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    params = {}
+    for i, block in enumerate(module.blocks):
+        params[f"block{i}"] = {}
+        for k, conv in zip(KERNEL_SIZES, block.convs):
+            params[f"block{i}"][f"conv{k}x{k}_kernel"] = np.transpose(
+                host(conv.weight), (2, 3, 1, 0))
+            params[f"block{i}"][f"conv{k}x{k}_bias"] = host(conv.bias)
+    for name in ("dense", "head"):
+        layer = getattr(module, name)
+        params[name] = {"kernel": host(layer.weight).T.copy(),
+                        "bias": host(layer.bias)}
+    return params
