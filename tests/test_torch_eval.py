@@ -148,10 +148,13 @@ def test_cli_eval_on_cpu(tmp_path, capsys):
 def test_cli_eval_refusals(tmp_path, capsys):
     assert main(["eval", "--policy", "model", "--cpu"]) == 2
     assert "--params" in capsys.readouterr().err
-    for policy in ("random", "tabular"):
-        assert main(["eval", "--policy", policy, "--cpu"]) == 2
-        assert "not yet ported" in capsys.readouterr().err
+    assert main(["eval", "--policy", "random", "--cpu"]) == 2
+    assert "not yet ported" in capsys.readouterr().err
+    assert main(["eval", "--policy", "tabular", "--cpu"]) == 2
+    assert "--table" in capsys.readouterr().err
     assert main(["eval", "--policy", "model", "--cpu", "--params",
+                 str(tmp_path / "missing.npz")]) == 2
+    assert main(["eval", "--policy", "tabular", "--cpu", "--table",
                  str(tmp_path / "missing.npz")]) == 2
 
 

@@ -146,5 +146,11 @@ def test_replay_bits_check_the_shape():
 
 
 def test_shaped_mode_is_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        tfast.FastEnvConfig(shaped=True)
+    """Shaped mode runs explicit actions only: its random-policy runs need
+    the rollout kernel, which the port does not have yet."""
+    cfg = tfast.FastEnvConfig(shaped=True)
+    bits = tfast.GeneratorBits(0, "cpu")
+    state = tfast.fast_reset(bits, 8, cfg)
+    assert isinstance(state, tfast.ShapedFastEnvState)
+    with pytest.raises(ValueError, match="explicit actions"):
+        tfast.fast_step(cfg, state, bits, None)

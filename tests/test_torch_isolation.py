@@ -22,7 +22,12 @@ def test_importing_the_port_loads_no_jax_and_no_tpu2048():
     modules = [m.name for m in pkgutil.walk_packages(
         tpu2048_torch.__path__, "tpu2048_torch.")
         if m.name != "tpu2048_torch.__main__"]
-    assert "tpu2048_torch.ops.step_kernel" in modules
+    assert {
+        "tpu2048_torch.ops.step_kernel", "tpu2048_torch.ops.table_kernel",
+        "tpu2048_torch.ops._build", "tpu2048_torch.env.rewards",
+        "tpu2048_torch.agents.tabular", "tpu2048_torch.agents.tabular_fast",
+        "tpu2048_torch.metrics.logging", "tpu2048_torch.training.tabular",
+    } <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -68,3 +73,12 @@ def test_create_model_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_model(DQNConfig(features=32, hidden=16, num_blocks=1))
+
+
+def test_train_tabular_defaults_to_cuda(monkeypatch):
+    from tpu2048_torch.cli.main import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["train", "tabular", "--episodes", "1", "--batch", "4",
+              "--capacity-log2", "8"])

@@ -1,1 +1,1 @@
-"""Agent configurations."""
+"""Agents: DQN configuration and the tabular Q-learner."""

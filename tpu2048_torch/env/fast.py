@@ -1,10 +1,10 @@
 """Fast batched env on the env-step kernel, the port of
-:mod:`tpu2048.env.fast` (simple-reward mode).
+:mod:`tpu2048.env.fast` (simple and shaped reward modes).
 
 Board state lives cell-major ``(16, B)`` on the device and each step is one
-launch of :func:`tpu2048_torch.ops.step_kernel.fused_env_step`; the simple
-reward, the terminal bonus and the episode lanes are a few tensor ops
-outside it.
+launch of :func:`tpu2048_torch.ops.step_kernel.fused_env_step`; the reward,
+the terminal bonus, the shaped env's stall lanes and the episode lanes are a
+few tensor ops outside it.
 
 Randomness comes from an explicit bit source: a callable ``batch -> (8,
 batch)`` int32 tensor of raw uint32 bit patterns, one draw per step.
@@ -23,6 +23,7 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
+from tpu2048_torch.env import rewards as rw
 from tpu2048_torch.env.env import SHAPED, SIMPLE
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops import step_kernel as sk
@@ -31,16 +32,33 @@ from tpu2048_torch.ops import step_kernel as sk
 @dataclasses.dataclass(frozen=True)
 class FastEnvConfig:
     """``tpu2048.env.fast.FastEnvConfig`` without its TPU knobs
-    (``block_size``, ``interpret``, ``external_rng``, ``backend``)."""
+    (``block_size``, ``interpret``, ``external_rng``, ``backend``).
+
+    ``shaped`` selects the QLearningBase env (Game2048_env.py:78-205): the
+    kernel runs the v1 done rule with the stall force-done, and the shaped
+    reward, stall penalty and ``prev_max`` lanes are computed outside it.
+    """
 
     terminal_bonus: bool = True
     shaped: bool = False
+    max_consecutive_actions: int = 10  # Game2048_env.py:92
+    stall_force_done: int = 100  # Game2048_env.py:123
+    reset_shaping: bool = False  # EnvConfig.reset_shaping_on_reset
 
-    def __post_init__(self):
-        if self.shaped:
-            raise NotImplementedError(
-                "the shaped-reward fast env is not yet ported"
-            )
+
+def for_env(env_config) -> FastEnvConfig:
+    """The fast config of an :class:`~tpu2048_torch.env.env.EnvConfig` (the
+    env-config part of ``tpu2048.env.fast.for_backend``): its terminal
+    bonus, and for a SHAPED env its stall parameters."""
+    shaped = {}
+    if env_config.reward == SHAPED:
+        shaped = dict(
+            shaped=True,
+            max_consecutive_actions=env_config.max_consecutive_actions,
+            stall_force_done=env_config.stall_force_done,
+            reset_shaping=env_config.reset_shaping_on_reset,
+        )
+    return FastEnvConfig(terminal_bonus=env_config.terminal_bonus, **shaped)
 
 
 def resolve_engine(env_config, engine: str,
@@ -116,6 +134,19 @@ class FastEnvState:
 
 
 @dataclasses.dataclass
+class ShapedFastEnvState(FastEnvState):
+    """:class:`FastEnvState` and the shaped env's cross-episode lanes
+    (Game2048_env.py:87,92-95): ``prev_max`` is the running best max tile
+    VALUE (2 at start, not reset between episodes unless ``reset_shaping``);
+    the consec lanes are the stall counters."""
+
+    prev_max: torch.Tensor  # (B,) int32 tile value
+    consec_action: torch.Tensor  # (B,) int32, -1 = none yet
+    consec_count: torch.Tensor  # (B,) int32
+    last_consec_penalty: torch.Tensor  # (B,) f32
+
+
+@dataclasses.dataclass
 class FastTimeStep:
     obs: torch.Tensor  # (16, B) int8: post-step board BEFORE auto-reset
     reward: torch.Tensor  # (B,) f32
@@ -127,20 +158,33 @@ class FastTimeStep:
     episode_steps: torch.Tensor  # (B,) int32
 
 
-def fast_reset(bits, batch_size: int) -> FastEnvState:
+def fast_reset(bits, batch_size: int,
+               config: Optional[FastEnvConfig] = None) -> FastEnvState:
     """Fresh boards from one draw of ``bits``, by the kernel's reset rule
-    (rows 4-7), on the bit source's device (``tpu2048.env.fast.fast_reset``,
-    whose ``config`` only chose the shaped state, not yet ported)."""
+    (rows 4-7), on the bit source's device (``tpu2048.env.fast.fast_reset``).
+    A shaped ``config`` gives a :class:`ShapedFastEnvState`."""
     boards = sk.reset_boards(bits(batch_size))
     device = boards.device
-    return FastEnvState(
+
+    def full(value, dtype):
+        return torch.full((batch_size,), value, dtype=dtype, device=device)
+
+    common = dict(
         boards=sk.to_cell_major(boards),
         legal=board_ops.legal_moves_mask(boards),
-        score=torch.zeros(batch_size, dtype=torch.int32, device=device),
-        episode_steps=torch.zeros(batch_size, dtype=torch.int32, device=device),
-        episode_return=torch.zeros(batch_size, dtype=torch.float32,
-                                   device=device),
+        score=full(0, torch.int32),
+        episode_steps=full(0, torch.int32),
+        episode_return=full(0.0, torch.float32),
     )
+    if config is not None and config.shaped:
+        return ShapedFastEnvState(
+            **common,
+            prev_max=full(2, torch.int32),
+            consec_action=full(-1, torch.int32),
+            consec_count=full(0, torch.int32),
+            last_consec_penalty=full(-1.0, torch.float32),
+        )
+    return FastEnvState(**common)
 
 
 def _tile(exp: torch.Tensor) -> torch.Tensor:
@@ -162,8 +206,11 @@ def fast_step(
     ``actions=None`` plays the kernel's random-legal policy.
     ``need_obs=True`` also materializes the pre-reset board in the timestep;
     ``need_legal=True`` refreshes ``state.legal`` from the kernel (otherwise
-    the field goes stale).
+    the field goes stale). A shaped ``config`` runs :func:`_shaped_fast_step`.
     """
+    if config.shaped:
+        return _shaped_fast_step(config, state, bits, actions, need_obs,
+                                 need_legal)
     b = state.batch_size
     device = state.boards.device
     if actions is None:
@@ -176,17 +223,14 @@ def fast_step(
     obs = outs[6] if need_obs else new_boards
     legal = (outs[-1] != 0).T if need_legal else state.legal
 
-    # Simple reward (nopenalty:122-138) + the training loop's terminal bonus
-    # (mainDQL:202-213).
-    reward = torch.where(~valid & ~done, -10.0, merge_score.to(torch.float32))
+    # Simple reward (done = game over in simple mode) + the training loop's
+    # terminal bonus on the kernel's top two tiles.
+    reward = rw.simple_reward(merge_score, valid, done)
     if config.terminal_bonus:
-        max_val = _tile(max_exp)
-        sec_val = torch.where(second_exp > 0, _tile(second_exp), 0)
-        bonus = torch.where(
-            max_val >= 2048, 100.0,
-            torch.where((max_val >= 1024) & (sec_val >= 1024), 50.0, 0.0),
-        )
-        reward = reward + torch.where(done, bonus, 0.0)
+        top2 = torch.stack([_tile(max_exp),
+                            torch.where(second_exp > 0, _tile(second_exp), 0)],
+                           dim=-1)
+        reward = reward + rw.terminal_bonus(top2, done)
 
     episode_return = state.episode_return + reward
     episode_steps = state.episode_steps + 1
@@ -207,5 +251,78 @@ def fast_step(
         score=torch.where(done, 0, score),
         episode_steps=torch.where(done, 0, episode_steps),
         episode_return=torch.where(done, 0.0, episode_return),
+    )
+    return new_state, ts
+
+
+def _shaped_fast_step(config: FastEnvConfig, state: ShapedFastEnvState, bits,
+                      actions, need_obs: bool, need_legal: bool):
+    """Shaped-reward fast step (``tpu2048.env.fast._shaped_fast_step``).
+
+    The stall counter and ``force_done`` are computed from the action
+    stream before the kernel; the kernel runs the v1 done rule
+    ``(~moved & game_over) | force_done``; the shaped reward, the stall
+    penalty ladder and ``prev_max`` follow it.
+    """
+    if actions is None:
+        raise ValueError(
+            "the shaped fast env requires explicit actions: its stall "
+            "counters (Game2048_env.py:110-127) are a function of the "
+            "action stream, which the in-kernel random policy never exposes"
+        )
+    b = state.batch_size
+    same = actions == state.consec_action
+    consec_count = torch.where(same, state.consec_count + 1, 1)
+    force_done = consec_count > config.stall_force_done
+
+    outs = sk.fused_env_step(
+        state.boards, actions, bits(b), force_done,
+        emit_pre_reset=need_obs, emit_legal=need_legal,
+    )
+    (new_boards, merge_score, valid, done, max_exp, second_exp,
+     game_over) = outs[:7]
+    obs = outs[7] if need_obs else new_boards
+    legal = (outs[-1] != 0).T if need_legal else state.legal
+
+    max_number = torch.where(max_exp > 0, _tile(max_exp), 0)
+    reward, new_prev_max = rw.shaped_reward(merge_score, valid, game_over,
+                                            max_number, state.prev_max)
+    last_penalty = torch.where(same, state.last_consec_penalty, -1.0)
+    stalled = consec_count > config.max_consecutive_actions
+    penalty = torch.clamp_min(last_penalty * 1.1, -10.0)
+    last_penalty = torch.where(stalled, penalty, last_penalty)
+    reward = reward + torch.where(stalled, penalty, 0.0)
+
+    episode_return = state.episode_return + reward
+    episode_steps = state.episode_steps + 1
+    score = state.score + merge_score
+    ts = FastTimeStep(
+        obs=obs,
+        reward=reward,
+        done=done,
+        valid=valid,
+        merge_score=merge_score,
+        max_number=max_number,
+        episode_return=episode_return,
+        episode_steps=episode_steps,
+    )
+    # Episode lanes clear on done; the shaping lanes persist across episodes
+    # (Game2048_env.py:187-191) unless reset_shaping.
+    consec_action = actions
+    if config.reset_shaping:
+        new_prev_max = torch.where(done, 2, new_prev_max)
+        consec_action = torch.where(done, -1, consec_action)
+        consec_count = torch.where(done, 0, consec_count)
+        last_penalty = torch.where(done, -1.0, last_penalty)
+    new_state = ShapedFastEnvState(
+        boards=new_boards,
+        legal=legal,
+        score=torch.where(done, 0, score),
+        episode_steps=torch.where(done, 0, episode_steps),
+        episode_return=torch.where(done, 0.0, episode_return),
+        prev_max=new_prev_max,
+        consec_action=consec_action,
+        consec_count=consec_count,
+        last_consec_penalty=last_penalty,
     )
     return new_state, ts

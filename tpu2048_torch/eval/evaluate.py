@@ -16,8 +16,10 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from tpu2048_torch.agents import tabular_fast as tabf
+from tpu2048_torch.agents.tabular import QTable
 from tpu2048_torch.env import fast as fastlib
-from tpu2048_torch.env.env import SHAPED, EnvConfig
+from tpu2048_torch.env.env import EnvConfig
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops.step_kernel import from_cell_major
 
@@ -45,19 +47,36 @@ def as_policy(policy) -> Policy:
     return Policy(fn=lambda p, b, m: policy(b, m))
 
 
-def _greedy(model, boards, legal_mask):
-    with torch.inference_mode():
-        q = model(boards)
+def _argmax_legal(q, legal_mask):
+    """Argmax of Q over the legal moves; the plain argmax where no move is
+    legal."""
     q_legal = torch.where(legal_mask, q, -torch.inf)
     return torch.where(
         legal_mask.any(-1), q_legal.argmax(-1), q.argmax(-1)
     ).to(torch.int32)
 
 
+def _greedy(model, boards, legal_mask):
+    with torch.inference_mode():
+        q = model(boards)
+    return _argmax_legal(q, legal_mask)
+
+
 def greedy_dqn_policy(model: torch.nn.Module) -> Policy:
     """Argmax of Q over the legal moves (GameDemo.py:288-316); the module is
     put in eval mode (no dropout)."""
     return Policy(fn=_greedy, params=model.eval())
+
+
+def _greedy_tabular(packed, boards, legal_mask):
+    return _argmax_legal(tabf.fast_lookup(packed, boards), legal_mask)
+
+
+def greedy_tabular_policy(table: QTable) -> Policy:
+    """Argmax of the hashed Q-table over the legal moves
+    (``tpu2048.eval.evaluate.greedy_tabular_policy``). The table is packed
+    once, on its device, and read by the bucket gather each step."""
+    return Policy(fn=_greedy_tabular, params=tabf.pack_qtable(table))
 
 
 @dataclasses.dataclass
@@ -132,10 +151,7 @@ def _evaluate_fast(policy: Policy, num_games, bits, env_config, batch_size,
     """One kernel launch per step; the first completion of each lane is
     latched (score = pre-step episode score + the terminal move's merge
     score; tile and length from the terminal timestep)."""
-    fcfg = fastlib.FastEnvConfig(
-        terminal_bonus=env_config.terminal_bonus,
-        shaped=env_config.reward == SHAPED,
-    )
+    fcfg = fastlib.for_env(env_config)
     start = time.perf_counter()
     scores: List[np.ndarray] = []
     tiles: List[np.ndarray] = []
@@ -145,7 +161,7 @@ def _evaluate_fast(policy: Policy, num_games, bits, env_config, batch_size,
     remaining = num_games
     while remaining > 0:
         b = min(batch_size, remaining)
-        state = fastlib.fast_reset(bits, b)
+        state = fastlib.fast_reset(bits, b, fcfg)
         device = state.boards.device
         actions_range = torch.arange(4, device=device)
         done = torch.zeros(b, dtype=torch.bool, device=device)

@@ -14,29 +14,18 @@ has no unsigned 32-bit arithmetic on the CPU, so the plain version widens the
 rows to int64 and masks them; the kernel reads them as ``uint32_t``.
 
 The kernel is built with ``nvcc`` at first use, from the source in the
-package, into ``build/`` beside the package, and loaded with ``ctypes``.
+package, into ``build/`` beside the package, and loaded with ``ctypes``
+(:mod:`tpu2048_torch.ops._build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from tpu2048_torch.ops import board as board_ops
-
-_PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "step_kernel.cu"
-BUILD_DIR = _PACKAGE.parent / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+from tpu2048_torch.ops._build import CudaLibrary
 
 
 def to_cell_major(boards: torch.Tensor) -> torch.Tensor:
@@ -158,51 +147,14 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-_library = None
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the step kernel")
-    return nvcc
-
-
-def library_path() -> Path:
-    """The shared object built from the current source (named by its hash,
-    so an edited source is rebuilt); nvcc's output is beside it as .log."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"step_kernel-{tag}.so"
-
-
-def build_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel's library."""
-    global _library
-    if _library is not None:
-        return _library
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.tpu2048_step_kernel
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _library = lib
-    return lib
+
+
+LIBRARY = CudaLibrary("step_kernel.cu", _declare)
 
 
 def fused_env_step(boards, actions, rng_bits, force_done=None, *,
@@ -252,7 +204,7 @@ def fused_env_step(boards, actions, rng_bits, force_done=None, *,
     if device.type != "cuda":
         raise ValueError(f"no step kernel for device {device}")
 
-    lib = build_library()
+    lib = LIBRARY.load()
 
     def lane(dtype):
         return torch.empty((b,), dtype=dtype, device=device)
