@@ -24,9 +24,10 @@ it exits non-zero and prints no result.
    Q-values of 64 boards on the card against the same weights in float32 on
    the CPU; and a small greedy evaluation on the card against the same one
    on the CPU, on the same bits, which must agree exactly.
-5. Time the kernel and its plain version with CUDA events at B=512 (the
-   main path's shape) and B=65536, beside the least time the card could
-   take for the same work.
+5. Time the step kernel and its plain version with CUDA events at B=512
+   (the main path's shape) and B=65536, and in shaped mode at B=1024 (the
+   tabular path's call), beside the least time the card could take for the
+   same work.
 6. Hold the table kernels (bucket gather, bucket scatter) against their
    plain versions on the card, on the full (2**21 + 1, 128) table filled
    from a seeded generator: B in {1, 5, 33, 1024, 65536}, bucket indices
@@ -48,7 +49,32 @@ it exits non-zero and prints no result.
 9. Time the table kernels at B=1024 (the path's shape) and B=65536: eager,
    device only, plain version, and the PyTorch call that computes the same
    function (``index_select``, ``index_copy_``), beside the bound.
-10. One JSON line describing the kernels, then the result line.
+10. Hold the rollout kernel against ``plain_env_rollout`` on the card: B in
+    {1, 512, 1000, 65536}, k in {1, 16}, simple with and without the
+    terminal bonus and shaped (stall limit 3) with and without
+    ``reset_shaping``, each with and without the eval latches; mid-game
+    lanes, a fifth of them latched, dead boards (plain, with a 2048, with
+    two 1024s), the edge bit patterns; two windows fed back. Every output
+    must be equal, the float32 return bit for bit. Then Philox mode against
+    external mode fed ``philox_rows`` and the plain version, at k=16 over
+    two launches, for each argument set that phase 11's calls make (bench:
+    B=65536, bonus on, no latches; random eval: 512 games simple and shaped
+    and 65536 simple, with latches; each at its seed, from the step after
+    the reset's row), and with stall limit 3 over a step counter that
+    crosses 2**32.
+11. The rollout path through ``tpu2048_torch.cli.main``, every count set to
+    0 before each call and read after it: ``eval --policy random`` (512
+    games, simple, twice, and shaped; 65536 games), whose rollout launches
+    must equal the windows played, with no other kernel, a max-tile mode of
+    64 or 128 and action counts summing to the game lengths, and one warm
+    512-game eval under ``torch.profiler``; ``bench`` at
+    its defaults (65536 lanes, 256 steps, Philox); and ``bench --tabular``
+    (batch 4096, capacity 2**24, 1 + 4 chunks of 256 steps) with the step,
+    gather and scatter launches it must make.
+12. Time the rollout kernel (k=16) at B=65536 with Philox and with external
+    bits, and with latches at B=512 and 65536: eager, device only, one plain
+    call, and the bound from the work these inputs need.
+13. One JSON line describing the four kernels, then the result line.
 """
 
 import concurrent.futures
@@ -78,6 +104,18 @@ ALU_OPS_PER_S = 67e12
 # the action is < 0, the spawn (116) where the move is valid and the reset
 # (76) where the episode ends.
 OPS_LANE, OPS_LEGAL, OPS_PICK, OPS_SPAWN, OPS_RESET = 916, 352, 25, 116, 76
+# The rollout kernel's own work a lane-step, counted the same way in
+# csrc/step_kernel.cu: the simple reward, bonus and window and episode sums
+# (20), the latches and action counts (20), the stall lanes (10); and one
+# Philox4x32-10 call (10 rounds of 2 wide products, 4 xors and 2 key adds:
+# 104), once a step and again where the episode ends.
+OPS_WINDOW, OPS_LATCH, OPS_STALL, OPS_PHILOX = 20, 20, 10, 104
+# The rollout slice's shapes: eval and bench windows of 16 steps; eval at
+# the JAX CLI's 512 games and at 65536; the bench's 65536 lanes, 256 steps.
+# The card matrix adds B=1 and a ragged last block (1000).
+ROLLOUT_K, BENCH_BATCH, BIG_EVAL = 16, 65536, 65536
+ROLLOUT_SIZES = (1, EVAL_GAMES, 1000, BENCH_BATCH)
+STALL_LIMIT = 3  # small, so that stall cutoffs happen in the card matrix
 # bf16 on the card against float32 on the CPU: bf16 keeps 8 bits, so each
 # layer's inputs, weights and outputs round by up to 2**-9; over five layers
 # the Q-values moved by ~0.5% of max|Q| at full width on the CPU.
@@ -115,7 +153,7 @@ def edge_bits(gen, b, device):
                          generator=gen, device=device)
     edge = torch.tensor([0, 0x7FFFFFFF, -(2**31), -1], dtype=torch.int32,
                         device=device)
-    bits[:, :4] = edge
+    bits[:, :4] = edge[:b]
     pick = torch.randint(0, 4, (8, b), generator=gen, device=device)
     use = torch.rand((8, b), generator=gen, device=device) < 0.1
     return torch.where(use, edge[pick], bits).contiguous()
@@ -329,38 +367,45 @@ def graph_ms(torch, fn, n):
     return elapsed_ms(torch, graph.replay, 10) / n
 
 
-def phase_timing(sk, torch, device, b):
-    """The main path's call (simple mode, emit_legal, greedy actions) at
-    batch ``b``: kernel, its graph-replayed device time, plain version, and
-    the bound from the bytes and operations these inputs need."""
+def phase_timing(sk, torch, device, b, shaped=False):
+    """The step kernel at batch ``b``: the eval path's call (simple mode,
+    emit_legal, greedy actions) or, ``shaped``, the tabular path's (shaped
+    mode with 5% forced ends, emit_pre_reset, explicit actions). Kernel, its
+    graph-replayed device time, plain version, and the bound from the bytes
+    and operations these inputs need."""
     gen = torch.Generator(device=device).manual_seed(SEED + b)
     boards = start_boards(gen, b, device)
     actions = torch.randint(0, 4, (b,), dtype=torch.int32, generator=gen,
                             device=device)
     bits = torch.randint(-(2**31), 2**31, (8, b), dtype=torch.int32,
                          generator=gen, device=device)
+    force_done = (torch.rand(b, generator=gen, device=device) < 0.05
+                  if shaped else None)
+    kw = dict(emit_pre_reset=shaped, emit_legal=not shaped)
 
     def kernel():
-        return sk.fused_env_step(boards, actions, bits, emit_legal=True)
+        return sk.fused_env_step(boards, actions, bits, force_done, **kw)
 
     def plain():
-        return sk.plain_env_step(boards, actions, bits, emit_legal=True)
+        return sk.plain_env_step(boards, actions, bits, force_done, **kw)
 
     out = kernel()
     n_rand = int((actions < 0).sum())
     n_moved = int(out[2].sum())
     n_done = int(out[3].sum())
-    # Inputs: board, action, and the bit rows a lane needs (row 0 if the
-    # action is < 0, rows 2-3 if the move is valid, rows 4-7 if the episode
-    # ends). Outputs: board, score, valid, done, max, second, legal mask.
-    n_bytes = (b * (16 + 4) + 4 * n_rand + 8 * n_moved + 16 * n_done
-               + b * (16 + 4 + 1 + 1 + 1 + 1 + 4))
-    n_ops = (b * (OPS_LANE + OPS_LEGAL) + OPS_PICK * n_rand
-             + OPS_SPAWN * n_moved + OPS_RESET * n_done)
+    # Inputs: board, action, [force_done,] and the bit rows a lane needs
+    # (row 0 if the action is < 0, rows 2-3 if the move is valid, rows 4-7
+    # if the episode ends). Outputs: board, score, valid, done, max, second,
+    # and the legal mask, or the game-over flag and the pre-reset board.
+    lane_bytes = 16 + 4 + 16 + 4 + 4 + (1 + 1 + 16 if shaped else 4)
+    n_bytes = b * lane_bytes + 4 * n_rand + 8 * n_moved + 16 * n_done
+    n_ops = (b * (OPS_LANE + (0 if shaped else OPS_LEGAL))
+             + OPS_PICK * n_rand + OPS_SPAWN * n_moved + OPS_RESET * n_done)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / ALU_OPS_PER_S * 1e3
     row = {
         "batch": b,
+        "mode": "shaped, emit_pre_reset" if shaped else "simple, emit_legal",
         "ms": elapsed_ms(torch, kernel, 200),
         "graph_ms": graph_ms(torch, kernel, 20),
         "plain_ms": elapsed_ms(torch, plain, 20),
@@ -701,6 +746,380 @@ def phase_table_timing(tk, torch, data, b):
     return out
 
 
+def edge_boards(torch, b, device):
+    """start_boards with dead boards (no legal move) at lanes b//2 onward:
+    plain, holding a 2048, holding two 1024s, and full but for one hole."""
+    checker = torch.tensor([1, 2, 1, 2, 2, 1, 2, 1] * 2, dtype=torch.int8,
+                           device=device)
+    patterns = [checker.clone() for _ in range(4)]
+    patterns[1][6] = 11
+    patterns[2][0] = patterns[2][15] = 10
+    patterns[3][5] = 0
+    gen = torch.Generator(device=device).manual_seed(SEED + b)
+    boards = start_boards(gen, b, device)
+    for j, lane in enumerate(range(b // 2, min(b, b // 2 + 32))):
+        boards[:, lane] = patterns[j % 4]
+    return boards
+
+
+def rollout_state(torch, gen, b, device, latch, shaped):
+    """Episode lanes mid-game, latch lanes with a fifth already latched, and
+    stall lanes mid-count."""
+    def ints(lo, hi, shape=(b,), dtype=torch.int32):
+        return torch.randint(lo, hi, shape, dtype=dtype, generator=gen,
+                             device=device)
+
+    lanes = (edge_boards(torch, b, device), ints(0, 5000), ints(0, 500),
+             ints(-100, 5000).to(torch.float32))
+    latch_state = None
+    if latch:
+        latched = (torch.rand(b, generator=gen, device=device)
+                   < 0.2).to(torch.int8)
+        latch_state = (latched, ints(0, 5000) * latched,
+                       ints(1, 500) * latched,
+                       ints(1, 12, dtype=torch.int8) * latched,
+                       ints(0, 300, (4, b)))
+    stall_state = (ints(-1, 4), ints(0, STALL_LIMIT + 1)) if shaped else None
+    return lanes, latch_state, stall_state
+
+
+def spread(outs):
+    """The rollout's outputs with the latch and stall tuples spread out."""
+    return [x for o in outs for x in (o if isinstance(o, tuple) else (o,))]
+
+
+def rollout_diff(torch, got, want, what):
+    """Max |difference| of two rollouts' outputs; fails unless every output
+    is equal (float32 by bit pattern)."""
+    got, want = spread(got), spread(want)
+    if len(got) != len(want):
+        fail(f"rollout at {what}: {len(got)} outputs != {len(want)}")
+    err = 0
+    for i, (a, c) in enumerate(zip(got, want)):
+        if a.dtype != c.dtype or a.shape != c.shape:
+            fail(f"rollout at {what}: output {i} {a.dtype}{tuple(a.shape)} "
+                 f"!= {c.dtype}{tuple(c.shape)}")
+        if a.dtype == torch.float32:
+            same = torch.equal(a.view(torch.int32), c.view(torch.int32))
+            diff = float((a - c).abs().max())
+        else:
+            diff = int_diff(torch, a, c)
+            same = diff == 0
+        if not same:
+            fail(f"rollout kernel != plain at {what}: output {i}, max |diff| "
+                 f"{diff}")
+        err = max(err, diff)
+    return err
+
+
+def phase_rollout_equal(sk, torch, device):
+    """The rollout kernel against plain_env_rollout on the card, external
+    bits, two windows each fed back: B in ROLLOUT_SIZES, k in {1, 16}, simple
+    with and without the bonus and shaped with and without reset_shaping,
+    each with and without latches. Then Philox mode against external rows
+    from philox_rows and the plain version, over two launches whose step
+    counter turns over its high word. Returns max |difference|."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    modes = [(bonus, latch, False, False) for bonus in (False, True)
+             for latch in (False, True)]
+    modes += [(True, latch, True, reset) for reset in (False, True)
+              for latch in (False, True)]
+    max_err, compared, dones, windows = 0, 0, 0, 0
+    for b, k in itertools.product(ROLLOUT_SIZES, (1, ROLLOUT_K)):
+        for bonus, latch, shaped, reset in modes:
+            kw = dict(terminal_bonus=bonus, stall_limit=STALL_LIMIT,
+                      reset_shaping=reset)
+            lanes, latch_state, stall_state = rollout_state(
+                torch, gen, b, device, latch, shaped)
+            what = (f"B={b} k={k} bonus={bonus} latch={latch} "
+                    f"shaped={shaped} reset_shaping={reset}")
+            for _ in range(2):
+                bits = torch.cat([edge_bits(gen, b, device)
+                                  for _ in range(k)])
+                got = sk.fused_env_rollout(*lanes, k, bits, latch_state,
+                                           stall_state, **kw)
+                want = sk.plain_env_rollout(*lanes, k, bits, latch_state,
+                                            stall_state, **kw)
+                max_err = max(max_err, rollout_diff(torch, got, want, what))
+                compared += len(spread(got))
+                dones += int(got[5].sum())
+                windows += 1
+                lanes = got[:4]
+                latch_state = got[6] if latch else None
+                stall_state = got[-1] if shaped else None
+    torch.cuda.synchronize()
+    if not dones:
+        fail("the rollout matrix ended no episode")
+    print(f"phase 10: rollout kernel == plain_env_rollout on the card, "
+          f"external bits: {windows} windows, {compared} outputs, {dones} "
+          f"episode ends, max |diff| {max_err}")
+
+    cases = philox_cases()
+    for label, b, config, latch, seed, step0 in cases:
+        kw = dict(terminal_bonus=config.terminal_bonus,
+                  stall_limit=config.stall_force_done,
+                  reset_shaping=config.reset_shaping)
+        lanes, latch_state, stall_state = rollout_state(
+            torch, gen, b, device, latch, config.shaped)
+        for step in (step0, step0 + ROLLOUT_K):
+            what = f"Philox, {label}, B={b} step={step}"
+            got = sk.fused_env_rollout(*lanes, ROLLOUT_K, None, latch_state,
+                                       stall_state, seed=seed, step=step,
+                                       **kw)
+            rows = sk.philox_rows(seed, step, ROLLOUT_K, b, device)
+            ext = sk.fused_env_rollout(*lanes, ROLLOUT_K, rows, latch_state,
+                                       stall_state, **kw)
+            want = sk.plain_env_rollout(*lanes, ROLLOUT_K, None, latch_state,
+                                        stall_state, seed=seed, step=step,
+                                        **kw)
+            max_err = max(max_err, rollout_diff(torch, got, ext, what),
+                          rollout_diff(torch, got, want, what))
+            lanes = got[:4]
+            latch_state = got[6] if latch else None
+            stall_state = got[-1] if config.shaped else None
+    torch.cuda.synchronize()
+    print(f"phase 10: Philox mode == external mode fed philox_rows == plain "
+          f"version at k={ROLLOUT_K}, two launches each: "
+          f"{'; '.join(f'{c[0]} (B={c[1]})' for c in cases)}: max |diff| "
+          f"{max_err}")
+    return max_err
+
+
+def philox_cases():
+    """Philox-mode argument sets: (label, B, fast config, latches, seed,
+    first step). First those of phase 11's calls, from the step after the
+    reset's row: ``bench`` (its env, seed 0) and ``eval --policy random``
+    (the CLI's env for each reward, seed SEED). Then stall limit 3 in both
+    rewards over a step counter that crosses 2**32."""
+    from tpu2048_torch import bench
+    from tpu2048_torch.env.env import EnvConfig
+    from tpu2048_torch.env.fast import FastEnvConfig, for_env
+
+    def eval_env(reward):
+        return for_env(EnvConfig(reward=reward, auto_reset=False))
+
+    cross = 2**32 - 8
+    return [
+        ("bench", BENCH_BATCH, bench.ROLLOUT_ENV, False, 0, 1),
+        ("eval simple", EVAL_GAMES, eval_env("simple"), True, SEED, 1),
+        ("eval shaped", EVAL_GAMES, eval_env("shaped"), True, SEED, 1),
+        ("eval simple", BIG_EVAL, eval_env("simple"), True, SEED, 1),
+        ("simple across 2**32", BENCH_BATCH, FastEnvConfig(), True,
+         2**40 + SEED, cross),
+        ("shaped, stall limit 3, across 2**32", BENCH_BATCH,
+         FastEnvConfig(shaped=True, stall_force_done=STALL_LIMIT), True,
+         2**40 + SEED, cross),
+    ]
+
+
+def zero_counts(sk, tk):
+    for fn in (sk.fused_env_step, sk.fused_env_rollout, tk.bucket_gather,
+               tk.bucket_scatter_):
+        fn.launches = 0
+
+
+def read_counts(sk, tk, torch):
+    torch.cuda.synchronize()
+    return {"step": sk.fused_env_step.launches,
+            "rollout": sk.fused_env_rollout.launches,
+            "gather": tk.bucket_gather.launches,
+            "scatter": tk.bucket_scatter_.launches}
+
+
+def run_path(sk, tk, torch, cli_main, argv):
+    """One CLI call with every count set to 0 just before and read just
+    after; returns its exit code, its stdout and the counts."""
+    zero_counts(sk, tk)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    counts = read_counts(sk, tk, torch)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli {' '.join(argv)} returned {rc}")
+    return out.getvalue(), counts, wall
+
+
+def profile_random_eval(torch):
+    """One warm random eval of EVAL_GAMES games under torch.profiler: the
+    device's busy share of the call and its kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu2048_torch.env.env import EnvConfig
+    from tpu2048_torch.env.fast import PhiloxBits
+    from tpu2048_torch.eval.evaluate import evaluate, random_legal_policy
+
+    def run():
+        result = evaluate(random_legal_policy(), EVAL_GAMES,
+                          PhiloxBits(SEED, torch.device("cuda", 0)),
+                          env_config=EnvConfig(reward="simple",
+                                               auto_reset=False),
+                          batch_size=EVAL_GAMES)
+        torch.cuda.synchronize()
+        return result
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):  # the tracer's own start-up
+        run()
+    with profile(activities=activities) as prof:
+        result = run()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    call_ms = 1e3 * result.seconds
+    print(f"phase 11: random eval under the profiler, {EVAL_GAMES} games: "
+          f"{call_ms:.3f} ms, {device_ms:.4f} ms of device time in "
+          f"{sum(e.count for e in kernels)} kernels of {len(kernels)} names: "
+          f"the device is busy {100 * device_ms / call_ms:.1f}% of the call")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"phase 11:   {e.self_device_time_total / 1e3:.4f} ms, "
+              f"{e.count} calls: {e.key[:100]}")
+
+
+def phase_rollout_path(sk, tk, torch):
+    """The rollout slice's path through the CLI: random eval (512 games,
+    simple and shaped; 65536 games), bench and bench --tabular. Returns the
+    rollout kernel's launches over the path."""
+    from tpu2048_torch import bench
+    from tpu2048_torch.cli.main import main as cli_main
+
+    rollout_launches = 0
+    evals = [("simple", EVAL_GAMES), ("simple, warm", EVAL_GAMES),
+             ("shaped", EVAL_GAMES), ("simple", BIG_EVAL)]
+    for label, games in evals:
+        argv = ["eval", "--policy", "random", "--games", str(games),
+                "--eval-batch", str(games), "--seed", str(SEED)]
+        if label == "shaped":
+            argv += ["--reward", "shaped"]
+        text, counts, wall = run_path(sk, tk, torch, cli_main, argv)
+        summary = json.loads(text)
+        windows = summary["batch_steps"] // ROLLOUT_K
+        tiles = summary["max_tile_distribution"]
+        mode_tile = int(max(tiles, key=lambda t: tiles[t]))
+        total_length = round(summary["length_mean"] * games)
+        if (counts["rollout"] != windows or windows == 0
+                or counts["step"] or counts["gather"] or counts["scatter"]):
+            fail(f"random eval ({label}, {games} games): {counts} launches "
+                 f"for {windows} windows")
+        if (summary["games"] != games or mode_tile not in (64, 128)
+                or sum(summary["action_counts"].values()) != total_length
+                or summary["env_steps"] != summary["batch_steps"] * games):
+            fail(f"implausible random eval ({label}): {summary}")
+        rollout_launches += counts["rollout"]
+        secs = summary["seconds"]
+        print(f"phase 11: eval --policy random, {label}, {games} games: "
+              f"{windows} rollout launches = {summary['batch_steps']} steps / "
+              f"{ROLLOUT_K}, no other kernel; {games / secs:.1f} games/s, "
+              f"{summary['env_steps'] / secs:.0f} env-steps/s ({secs:.4f} s "
+              f"of games, {wall:.3f} s for the CLI call); score mean "
+              f"{summary['score_mean']:.1f}, length mean "
+              f"{summary['length_mean']:.1f}, max tiles {tiles}")
+
+    profile_random_eval(torch)
+
+    text, counts, wall = run_path(sk, tk, torch, cli_main, ["bench"])
+    row = json.loads(text)
+    windows = row["steps"] // ROLLOUT_K
+    if (row["launches"] != windows or counts["rollout"] != 2 * windows
+            or counts["step"] or row["batch"] != BENCH_BATCH
+            or row["bits"] != "philox" or "vs_baseline" in row
+            or not row["env_steps_per_s"] > 0 or not row["episodes"] > 0):
+        fail(f"bench: {row}, launches {counts}")
+    rollout_launches += counts["rollout"]
+    print(f"phase 11: bench: {json.dumps(row)}; {counts['rollout']} "
+          f"rollout launches (warm-up and timed run), {wall:.3f} s for the "
+          f"CLI call")
+
+    text, counts, wall = run_path(sk, tk, torch, cli_main,
+                                  ["bench", "--tabular"])
+    tab = json.loads(text)
+    # One warm chunk and the timed ones.
+    steps = (1 + bench.TABULAR_TIMED_CHUNKS) * bench.TABULAR_STEPS_PER_CHUNK
+    if (tab["batch"] != 4096
+            or tab["capacity_log2"] != bench.TABULAR_CAPACITY_LOG2
+            or counts["step"] != steps or counts["scatter"] != steps
+            or counts["gather"] != 2 * steps or counts["rollout"]
+            or not tab["env_steps_per_s"] > 0):
+        fail(f"bench --tabular: {tab}, launches {counts}")
+    print(f"phase 11: bench --tabular: {json.dumps(tab)}; launches {counts} "
+          f"for {steps} steps; {wall:.3f} s for the CLI call")
+    return rollout_launches
+
+
+def rollout_work(sk, lanes, k, bits):
+    """Lane-steps that move and that end an episode in this window, by
+    stepping the plain version with the same bits."""
+    from tpu2048_torch.ops import board as board_ops
+
+    boards = lanes[0]
+    moved = done = 0
+    for it in range(k):
+        rows = bits[8 * it:8 * it + 8]
+        legal = board_ops.legal_moves_mask(sk.from_cell_major(boards))
+        action = sk.rand_legal_action(legal, rows[0])
+        boards, _, valid, ended = sk.plain_env_step(boards, action, rows)[:4]
+        moved += int(valid.sum())
+        done += int(ended.sum())
+    return moved, done
+
+
+def phase_rollout_timing(sk, torch, device, b, philox, latch):
+    """One rollout window of ROLLOUT_K steps at batch ``b`` (simple, bonus
+    on): eager and graph-replayed kernel time, one plain call, and the bound
+    from the bytes and operations this window needs."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 20 + b)
+    lanes, latch_state, _ = rollout_state(torch, gen, b, device, latch,
+                                          False)
+    lanes = (start_boards(gen, b, device),) + lanes[1:]
+    k, seed, step = ROLLOUT_K, SEED, 0
+    rows = sk.philox_rows(seed, step, k, b, device)
+    src = dict(seed=seed, step=step) if philox else {}
+    bits = None if philox else rows
+
+    def kernel():
+        return sk.fused_env_rollout(*lanes, k, bits, latch_state, **src)
+
+    def plain():
+        return sk.plain_env_rollout(*lanes, k, bits, latch_state, **src)
+
+    moved, done = rollout_work(sk, lanes, k, rows)
+    lane_steps = b * k
+    # Each input read once and each output written once: board, score,
+    # steps, return in (28 B) and out with the two window sums (36 B); the
+    # latch lanes (26 B) in and out; external bits as each lane-step needs
+    # them (row 0, rows 2-3 where it moves, rows 4-7 where it ends).
+    n_bytes = b * (28 + 36 + (52 if latch else 0))
+    if not philox:
+        n_bytes += 4 * lane_steps + 8 * moved + 16 * done
+    n_ops = (lane_steps * (OPS_LANE + OPS_PICK + OPS_WINDOW
+                           + (OPS_LATCH if latch else 0))
+             + OPS_SPAWN * moved + OPS_RESET * done)
+    if philox:
+        n_ops += OPS_PHILOX * (lane_steps + done)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    row = {
+        "kernel": "rollout_kernel", "batch": b, "k": k,
+        "bits": "philox" if philox else "external", "latch": latch,
+        "ms": elapsed_ms(torch, kernel, 100),
+        "graph_ms": graph_ms(torch, kernel, 10),
+        "plain_ms": 1e3 * (time.perf_counter() - t0),
+        "moved_lane_steps": moved, "done_lane_steps": done,
+        "bytes": n_bytes, "ops": n_ops,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    row["graph_env_steps_per_s"] = lane_steps / (row["graph_ms"] / 1e3)
+    print("phase 12: " + json.dumps(row))
+    return row
+
+
 def main():
     try:
         import torch
@@ -727,6 +1146,7 @@ def main():
     launches = phase_main_path(sk, torch, device)
     main_row = phase_timing(sk, torch, device, EVAL_GAMES)
     phase_timing(sk, torch, device, 65536)
+    phase_timing(sk, torch, device, TABLE_BATCH, shaped=True)
     gather_err, scatter_err = phase_table_equal(tk, torch, device)
     table_launches, _ = phase_tabular(sk, tk, torch, device)
     phase_narrow(sk, tk, torch, device)
@@ -736,6 +1156,15 @@ def main():
     phase_table_timing(tk, torch, data, 65536)
     del data
     torch.cuda.synchronize()
+    rollout_err = phase_rollout_equal(sk, torch, device)
+    rollout_launches = phase_rollout_path(sk, tk, torch)
+    rollout_row = phase_rollout_timing(sk, torch, device, BENCH_BATCH,
+                                       philox=True, latch=False)
+    phase_rollout_timing(sk, torch, device, BENCH_BATCH, philox=False,
+                         latch=False)
+    phase_rollout_timing(sk, torch, device, EVAL_GAMES, philox=True,
+                         latch=True)
+    phase_rollout_timing(sk, torch, device, BIG_EVAL, philox=True, latch=True)
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -767,6 +1196,19 @@ def main():
                     gather_err),
         table_entry("bucket_scatter", 112, table_launches["scatter"],
                     scatter_err),
+        {
+            "name": "rollout_kernel",
+            "route": "cuda",
+            "source": "tpu2048_torch/csrc/step_kernel.cu",
+            "replaces": "tpu2048/ops/pallas_step.py:497",
+            "launches": rollout_launches,
+            "max_abs_err": rollout_err,
+            "ms": rollout_row["ms"],
+            "plain_ms": rollout_row["plain_ms"],
+            "bound_ms": rollout_row["bound_ms"],
+            "bound_by": rollout_row["bound_by"],
+            "library_ms": None,
+        },
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -29,13 +29,16 @@ from tpu2048.env import EnvConfig as JaxEnvConfig
 from tpu2048.env import fast as jfast
 from tpu2048.eval.evaluate import evaluate as jax_evaluate
 from tpu2048.eval.evaluate import greedy_dqn_policy as jax_greedy
+from tpu2048.eval.evaluate import random_legal_policy as jax_random
 from tpu2048.models import dqn as jdqn
 from tpu2048_torch.agents.dqn import DQNConfig
 from tpu2048_torch.checkpoint.params import load_params, save_params
 from tpu2048_torch.cli.main import main
 from tpu2048_torch.env import fast as tfast
+from tpu2048_torch.env.env import EnvConfig
 from tpu2048_torch.eval import evaluate as teval
 from tpu2048_torch.models import dqn as tdqn
+from tpu2048_torch.ops import step_kernel as sk
 
 NARROW = dict(features=32, hidden=16, num_blocks=2)
 NARROW_FLAGS = ["--features", "32", "--hidden", "16", "--blocks", "2",
@@ -148,14 +151,85 @@ def test_cli_eval_on_cpu(tmp_path, capsys):
 def test_cli_eval_refusals(tmp_path, capsys):
     assert main(["eval", "--policy", "model", "--cpu"]) == 2
     assert "--params" in capsys.readouterr().err
-    assert main(["eval", "--policy", "random", "--cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
     assert main(["eval", "--policy", "tabular", "--cpu"]) == 2
     assert "--table" in capsys.readouterr().err
     assert main(["eval", "--policy", "model", "--cpu", "--params",
                  str(tmp_path / "missing.npz")]) == 2
     assert main(["eval", "--policy", "tabular", "--cpu", "--table",
                  str(tmp_path / "missing.npz")]) == 2
+
+
+@pytest.mark.parametrize("reward", ["simple", "shaped"])
+def test_random_eval_matches_jax(reward):
+    """JAX's random eval on its rollout path (``fast_backend="lax"``) and
+    the port's on the same reset boards and step bits: equal results."""
+    env_config = JaxEnvConfig(reward=reward, auto_reset=False)
+    key = jax.random.PRNGKey(SEED)
+    want = jax_evaluate(jax_random(), GAMES, key, env_config=env_config,
+                        batch_size=GAMES, max_steps=32, engine="fast",
+                        fast_backend="lax")
+    _, k_reset = jax.random.split(key)
+    fcfg = jfast.for_backend(batch_size=GAMES, backend="lax",
+                             env_config=env_config)
+    jstate = jfast.fast_reset(fcfg, k_reset, GAMES)
+    bits = tfast.ReplayBits(itertools.chain(
+        [to_torch(reset_rows(jstate.boards))],
+        jax_step_bits(int(jstate.seed))))
+    got = teval.evaluate(teval.random_legal_policy(), GAMES, bits,
+                         env_config=EnvConfig(reward=reward,
+                                              auto_reset=False),
+                         batch_size=GAMES, max_steps=32)
+    for name in ("scores", "max_tiles", "lengths", "action_counts"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name), err_msg=name)
+    assert got.batch_steps == 48 and got.env_steps == 48 * GAMES
+
+
+@pytest.mark.parametrize("reward", ["simple", "shaped"])
+def test_cli_eval_random_on_cpu(reward, monkeypatch, capsys):
+    """``eval --policy random`` plays on the rollout kernel's path, 16 steps
+    a call, and never calls the step kernel."""
+    calls = []
+    rollout = sk.fused_env_rollout
+
+    def counting(*args, **kwargs):
+        calls.append(args[4])
+        return rollout(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("random eval called the step kernel")
+
+    monkeypatch.setattr(sk, "fused_env_rollout", counting)
+    monkeypatch.setattr(sk, "fused_env_step", refuse)
+    rc = main(["eval", "--policy", "random", "--games", "12",
+               "--eval-batch", "8", "--reward", reward, "--seed", "4",
+               "--cpu"])
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["games"] == 12
+    assert summary["batch_steps"] == 16 * len(calls) and set(calls) == {16}
+    total_length = round(summary["length_mean"] * 12)
+    assert sum(summary["action_counts"].values()) == total_length
+    assert summary["score_mean"] > 0 and summary["best_tile"] >= 32
+
+    result = teval.evaluate(teval.random_legal_policy(), 12,
+                            tfast.PhiloxBits(4, "cpu"),
+                            env_config=EnvConfig(reward=reward,
+                                                 auto_reset=False),
+                            batch_size=8)
+    assert (result.scores > 0).all()
+    assert result.action_counts.sum() == result.lengths.sum()
+    assert result.summary()["score_mean"] == summary["score_mean"]
+
+
+def test_random_policy_is_drawn_only_in_the_kernel():
+    """The random-legal policy has no per-step function: called directly,
+    it raises instead of drawing from a generator the eval does not own."""
+    policy = teval.random_legal_policy()
+    assert policy.in_kernel_random
+    boards = torch.zeros((2, 4, 4), dtype=torch.int8)
+    with pytest.raises(TypeError, match="rollout kernel"):
+        policy(boards, torch.ones((2, 4), dtype=torch.bool))
 
 
 def test_evaluate_refuses_the_lax_engine():

@@ -27,6 +27,8 @@ def test_importing_the_port_loads_no_jax_and_no_tpu2048():
         "tpu2048_torch.ops._build", "tpu2048_torch.env.rewards",
         "tpu2048_torch.agents.tabular", "tpu2048_torch.agents.tabular_fast",
         "tpu2048_torch.metrics.logging", "tpu2048_torch.training.tabular",
+        "tpu2048_torch.bench", "tpu2048_torch.eval.evaluate",
+        "tpu2048_torch.env.fast",
     } <= set(modules)
     code = (
         "import importlib, sys\n"
@@ -64,6 +66,38 @@ def test_cpu_tensors_run_the_plain_version_without_a_launch():
     assert sk.fused_env_step.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_cpu_tensors_run_the_plain_rollout_without_a_launch():
+    rng = np.random.default_rng(1)
+    b, k = 32, 4
+    boards = torch.from_numpy(rng.integers(0, 5, (16, b)).astype(np.int8))
+    zero = torch.zeros(b, dtype=torch.int32)
+    lanes = (boards, zero, zero, torch.zeros(b, dtype=torch.float32))
+    before = sk.fused_env_rollout.launches
+    got = sk.fused_env_rollout(*lanes, k, seed=3, step=0)
+    want = sk.plain_env_rollout(*lanes, k, seed=3, step=0)
+    assert sk.fused_env_rollout.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="not both"):
+        sk.fused_env_rollout(*lanes, k, sk.philox_rows(3, 0, k, b, "cpu"),
+                             seed=3, step=0)
+    with pytest.raises(ValueError, match="seed and step"):
+        sk.fused_env_rollout(*lanes, k)
+
+
+@pytest.mark.parametrize("argv", [
+    ["eval", "--policy", "random", "--games", "4", "--eval-batch", "4"],
+    ["bench", "--batch", "4", "--steps", "16"],
+    ["bench", "--tabular", "--batch", "4"],
+], ids=["eval-random", "bench", "bench-tabular"])
+def test_rollout_entry_points_default_to_cuda(argv, monkeypatch):
+    from tpu2048_torch.cli.main import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv)
 
 
 def test_create_model_defaults_to_cuda(monkeypatch):

@@ -1,14 +1,16 @@
-"""Command line, the port of :mod:`tpu2048.cli.main` (``train tabular`` and
-``eval`` so far).
+"""Command line, the port of :mod:`tpu2048.cli.main` (``train tabular``,
+``eval`` and ``bench`` so far).
 
 ``python -m tpu2048_torch train tabular --save q.npz`` trains the tabular
 Q-learner on the card and writes its table; ``python -m tpu2048_torch eval
 --policy tabular --table q.npz`` or ``--policy model --params FILE.npz``
-plays greedy games and prints ``EvalResult.summary()`` as JSON. ``--cpu``
-runs on the CPU instead. Flag names and defaults are the JAX CLI's; the
-DQN's weights come from a params ``.npz``
-(:mod:`tpu2048_torch.checkpoint.params`) in place of an Orbax checkpoint
-directory. Flags of parts not yet ported exit with code 2.
+plays greedy games, ``--policy random`` (the default) random-legal ones on
+the rollout kernel, and prints ``EvalResult.summary()`` as JSON; ``python -m
+tpu2048_torch bench [--tabular]`` prints one JSON line of throughput
+(:mod:`tpu2048_torch.bench`). ``--cpu`` runs on the CPU instead. Flag
+names and defaults are the JAX CLI's; the DQN's weights come from a params
+``.npz`` (:mod:`tpu2048_torch.checkpoint.params`) in place of an Orbax
+checkpoint directory. Flags of parts not yet ported exit with code 2.
 """
 
 from __future__ import annotations
@@ -85,8 +87,6 @@ def _tabular_policy(args, device):
 
 
 def cmd_eval(args) -> int:
-    if args.policy == "random":
-        return _not_ported("--policy random")
     if args.policy == "model" and not args.params:
         print("--params required for --policy model", file=sys.stderr)
         return 2
@@ -95,25 +95,47 @@ def cmd_eval(args) -> int:
         return 2
 
     from tpu2048_torch.env.env import EnvConfig
-    from tpu2048_torch.env.fast import GeneratorBits
-    from tpu2048_torch.eval.evaluate import evaluate
+    from tpu2048_torch.env.fast import GeneratorBits, PhiloxBits
+    from tpu2048_torch.eval.evaluate import evaluate, random_legal_policy
     from tpu2048_torch.utils.device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)
-    make = _model_policy if args.policy == "model" else _tabular_policy
-    try:
-        policy = make(args, device)
-    except FileNotFoundError as e:
-        print(e, file=sys.stderr)
-        return 2
+    if args.policy == "random":
+        # The rollout kernel draws the random policy's bits in-kernel.
+        policy, bits = random_legal_policy(), PhiloxBits(args.seed, device)
+    else:
+        make = _model_policy if args.policy == "model" else _tabular_policy
+        try:
+            policy = make(args, device)
+        except FileNotFoundError as e:
+            print(e, file=sys.stderr)
+            return 2
+        bits = GeneratorBits(args.seed, device)
     result = evaluate(
         policy,
         num_games=args.games,
-        bits=GeneratorBits(args.seed, device),
+        bits=bits,
         env_config=EnvConfig(reward=args.reward, auto_reset=False),
         batch_size=args.eval_batch,
     )
     print(json.dumps(result.summary(), indent=2))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    for flag, on in (("--learner", args.learner),
+                     ("--train-loop", args.train_loop),
+                     ("--scale", args.scale)):
+        if on:
+            return _not_ported(flag)
+    from tpu2048_torch import bench
+
+    device = "cpu" if args.cpu else None
+    if args.tabular:
+        bench.tabular_main(batch=args.batch or 4096, device=device)
+    else:
+        bench.main(batch=args.batch or 65536, steps=args.steps,
+                   device=device)
     return 0
 
 
@@ -187,6 +209,24 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     pe.set_defaults(fn=cmd_eval)
+
+    pb = sub.add_parser("bench", help="throughput benchmarks",
+                        allow_abbrev=False)
+    pb.add_argument("--batch", type=int, default=None,
+                    help="parallel envs (default 65536; 4096 with "
+                         "--tabular)")
+    pb.add_argument("--steps", type=int, default=256,
+                    help="env steps of the timed run (16 a launch)")
+    pb.add_argument("--tabular", action="store_true",
+                    help="benchmark the tabular training chunk's env "
+                         "steps/s (shaped env + hashed Q-table)")
+    pb.add_argument("--learner", action="store_true", help="not yet ported")
+    pb.add_argument("--train-loop", action="store_true",
+                    help="not yet ported")
+    pb.add_argument("--scale", type=str, default=None, help="not yet ported")
+    pb.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the card")
+    pb.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -1,6 +1,8 @@
-// One whole 2048 env step per lane, for Hopper (sm_90a).
+// The env kernels of the port, for Hopper (sm_90a): one whole 2048 env step
+// per lane (step_kernel), and k random-legal steps per lane in one launch
+// (rollout_kernel). Both run the same device function, env_step.
 //
-// Replaces tpu2048/ops/pallas_step.py::_step_kernel (its core is
+// step_kernel replaces tpu2048/ops/pallas_step.py::_step_kernel (its core is
 // _env_step_core): all four direction merges, the uniform random-legal pick
 // for lanes whose action is < 0, the spawn, game over, done, the max and
 // second-max exponents, the auto-reset, and optionally the pre-reset board
@@ -8,30 +10,45 @@
 // mode (done = (~moved & game_over) | force_done, with a game_over output)
 // are both here; force_done == nullptr selects simple mode.
 //
-// What bounds it: at large batches, memory and integer throughput about
-// equally. A lane moves the board in and out, the action, the bit rows it
-// needs and the lane outputs -- at most 80 bytes in simple mode with the
-// legal mask -- and does some 1,300-1,500 32-bit operations in registers
-// (counted at source level; chip_smoke.py computes both bounds from its
-// inputs). At eval
-// batch sizes (512 lanes, ~29 KB) neither matters: a launch costs the launch
-// latency plus one thread's chain of dependent operations, so a later
-// version would fuse steps or split a lane's work, not shave bytes.
+// rollout_kernel replaces pallas_step.py::_rollout_kernel: k_steps steps of
+// env_step with action -1 per launch, the board and the lane's episode score,
+// steps and return held in registers across the window, with the window sums
+// reward_sum and done_count. Template switches add the eval latches (first
+// completion's score, steps and max exponent, live-step action counts) and
+// the shaped stall lanes (the count advances on the resolved action and
+// force-ends the episode past stall_limit); a switch that is off costs no
+// registers. The bits come from memory, 8 rows a step, or from Philox4x32-10
+// inside the kernel (the counterpart of the TPU's on-core PRNG).
+//
+// What bounds them: integer operations. A lane-step does some 1,100-1,500
+// 32-bit operations in registers (legality of four directions, one merge,
+// game over, the maxima, the pick; the spawn where the move is valid and
+// the reset where the episode ends; ~200 more for Philox). The step kernel
+// moves at most 80 bytes a lane; the rollout kernel 64 bytes a lane a launch
+// with Philox bits (28 in, 36 out), plus 512 a lane with k = 16 rows of bits
+// from memory, so at k = 16 it is bound by operations in both modes
+// (chip_smoke.py computes both bounds from its inputs). At eval batch sizes
+// (512 lanes, 2 blocks on 132 SMs) a launch costs the launch latency plus
+// one thread's chain of dependent operations, k times over in the rollout.
 //
 // Design: one thread per lane, 256 threads a block, ceil(B / 256) blocks;
-// the ragged last block is masked, so any B works (the TPU kernel needed
+// the ragged last block is masked, so any B works (the TPU kernels needed
 // B % block == 0). Boards are cell-major (16, B) int8: row i holds cell i of
 // every lane, so neighbouring threads read and write neighbouring bytes.
 // The 16 cells live in int32 registers (every index below is a compile-time
 // constant after unrolling). Only the chosen direction is merged; legality
 // of all four comes from the hole/pair test, which equals "the merge changes
-// the row". A bit row is read only by the lanes that need it: row 0 where
-// the action is < 0, rows 2-3 where the move is valid, rows 4-7 where the
-// episode ends.
+// the row". A bit row is read (or, with Philox, half of them computed) only
+// by the lanes that need it: row 0 where the action is < 0, rows 2-3 where
+// the move is valid, rows 4-7 where the episode ends.
 //
-// Bits: (8, B) uint32 rows in the TPU kernel's order (pallas_step.py:393):
+// Bits: 8 uint32 rows a step in the TPU kernel's order (pallas_step.py:393):
 // action-pick, unused, spawn-pos, spawn-val, reset-p1, reset-p2, reset-v1,
 // reset-v2. The callers hold them as int32 storage of the same pattern.
+// Philox4x32-10 (Random123) is keyed by the 64-bit seed and counts by
+// (lane, step_lo, step_hi, half): half 0 gives rows 0-3 and half 1 rows 4-7
+// of step `step`, the bit source's running step counter, so the stream does
+// not depend on k or on how a run splits into launches.
 
 #include <cstdint>
 
@@ -129,32 +146,91 @@ __device__ __forceinline__ int tile_value(uint32_t bits) {
   return bits % 10u < 9u ? 1 : 2;
 }
 
-__global__ void __launch_bounds__(kThreads)
-step_kernel(const int8_t* __restrict__ boards,
-            const int32_t* __restrict__ actions,
-            const uint32_t* __restrict__ bits,
-            const uint8_t* __restrict__ force_done,
-            int8_t* __restrict__ out_boards, int32_t* __restrict__ out_score,
-            uint8_t* __restrict__ out_valid, uint8_t* __restrict__ out_done,
-            int8_t* __restrict__ out_max, int8_t* __restrict__ out_second,
-            uint8_t* __restrict__ out_game_over,
-            int8_t* __restrict__ out_pre_reset,
-            int8_t* __restrict__ out_legal, int batch) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= batch) return;
-  const size_t B = static_cast<size_t>(batch);
-
-  int c[16];
+// Philox4x32-10: ten rounds of two 32x32->64 products, the key bumped by
+// the Weyl constants between rounds.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) c[i] = boards[i * B + lane];
+  for (int i = 0; i < 10; ++i) {
+    if (i > 0) {
+      key.x += 0x9E3779B9u;
+      key.y += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, ctr.x);
+    const uint32_t lo0 = 0xD2511F53u * ctr.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, ctr.z);
+    const uint32_t lo1 = 0xCD9E8D57u * ctr.z;
+    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
+  }
+  return ctr;
+}
 
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// One step's bit rows from memory: row r of this lane at rows[r * B + lane].
+struct RowBits {
+  const uint32_t* rows;
+  size_t B;
+  int lane;
+  __device__ __forceinline__ uint32_t operator()(int r) const {
+    return rows[r * B + lane];
+  }
+};
+
+// One step's bit rows from Philox: half 0 at once, half 1 at its first use.
+struct PhiloxBits {
+  uint2 key;
+  uint4 ctr;
+  uint4 lo, hi;
+  bool have_hi;
+  __device__ __forceinline__ PhiloxBits(uint2 key_, uint32_t lane,
+                                        uint64_t step)
+      : key(key_),
+        ctr(make_uint4(lane, static_cast<uint32_t>(step),
+                       static_cast<uint32_t>(step >> 32), 0u)),
+        have_hi(false) {
+    lo = philox4x32_10(ctr, key);
+  }
+  __device__ __forceinline__ uint32_t operator()(int r) {
+    if (r < 4) return word(lo, r);
+    if (!have_hi) {
+      ctr.w = 1u;
+      hi = philox4x32_10(ctr, key);
+      have_hi = true;
+    }
+    return word(hi, r - 4);
+  }
+};
+
+struct StepResult {
+  int score;     // merge score of the move
+  int mx;        // max exponent of the post-step, pre-reset board
+  int second;    // second max, skipping only the first max cell
+  int action;    // the resolved action
+  bool moved;    // the move changed the board
+  bool done;     // the episode ended (the board was reset)
+  bool game_over;
+};
+
+// One env step of one lane (pallas_step.py::_env_step_core). `c` holds the
+// board and becomes the post-reset board. An action < 0 is resolved to a
+// uniformly random legal one (0 where none is legal). In shaped mode
+// `force_done(action)` is called once with the resolved action, and
+// done = (~moved & game_over) | force_done; else done = game_over.
+// `pre_reset`, if not null, receives the post-step board before the reset.
+template <class Bits, class ForceDone>
+__device__ __forceinline__ StepResult env_step(int c[16], int action,
+                                               bool shaped,
+                                               ForceDone force_done,
+                                               Bits& bits, int8_t* pre_reset,
+                                               size_t B, int lane) {
   bool legal[4];
   legal_dirs(c, legal);
-  int action = actions[lane];
   if (action < 0) {
     // The pick-th legal direction in order, uniform over the legal ones.
     const int n_legal = legal[0] + legal[1] + legal[2] + legal[3];
-    const int pick = uniform_mod(bits[lane], n_legal);
+    const int pick = uniform_mod(bits(0), n_legal);
     int csum = 0, chosen = 0;
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -163,29 +239,32 @@ step_kernel(const int8_t* __restrict__ boards,
     }
     action = chosen;
   }
+  const bool forced = shaped && force_done(action);
 
   // Merge the chosen direction only. An illegal direction leaves the board
   // as it was with a zero score, and so does an action outside [0, 4).
   int nc[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) nc[i] = c[i];
-  int score = 0;
-  bool moved = false;
+  StepResult s;
+  s.action = action;
+  s.score = 0;
+  s.moved = false;
   switch (action) {
-    case 0: score = merge_dir<0>(nc); moved = legal[0]; break;
-    case 1: score = merge_dir<1>(nc); moved = legal[1]; break;
-    case 2: score = merge_dir<2>(nc); moved = legal[2]; break;
-    case 3: score = merge_dir<3>(nc); moved = legal[3]; break;
+    case 0: s.score = merge_dir<0>(nc); s.moved = legal[0]; break;
+    case 1: s.score = merge_dir<1>(nc); s.moved = legal[1]; break;
+    case 2: s.score = merge_dir<2>(nc); s.moved = legal[2]; break;
+    case 3: s.score = merge_dir<3>(nc); s.moved = legal[3]; break;
     default: break;
   }
 
-  if (moved) {
+  if (s.moved) {
     // Spawn on a uniformly random empty cell of the merged board.
     int n_empty = 0;
 #pragma unroll
     for (int i = 0; i < 16; ++i) n_empty += nc[i] == 0;
-    const int idx = uniform_mod(bits[2 * B + lane], n_empty);
-    const int val = tile_value(bits[3 * B + lane]);
+    const int idx = uniform_mod(bits(2), n_empty);
+    const int val = tile_value(bits(3));
     int csum = 0;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -208,10 +287,8 @@ step_kernel(const int8_t* __restrict__ boards,
              nc[4 * k + r] == nc[4 * k + r + 4];
     }
   }
-  const bool game_over = !open;
-  const bool done = force_done == nullptr
-                        ? game_over
-                        : (!moved && game_over) || force_done[lane] != 0;
+  s.game_over = !open;
+  s.done = shaped ? (!s.moved && s.game_over) || forced : s.game_over;
 
   // Max exponent, and the second max that skips only the FIRST max cell in
   // cell order (two equal maxima give second == max).
@@ -226,36 +303,224 @@ step_kernel(const int8_t* __restrict__ boards,
     taken = taken || first_max;
     if (!first_max && nc[i] > second) second = nc[i];
   }
+  s.mx = mx;
+  s.second = second;
 
-  if (out_pre_reset != nullptr) {
+  if (pre_reset != nullptr) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) out_pre_reset[i * B + lane] = nc[i];
+    for (int i = 0; i < 16; ++i) pre_reset[i * B + lane] = nc[i];
   }
 
-  if (done) {
+  if (s.done) {
     // Auto-reset to a fresh two-tile board.
-    const int p1 = uniform_mod(bits[4 * B + lane], 16);
-    const int p2r = uniform_mod(bits[5 * B + lane], 15);
+    const int p1 = uniform_mod(bits(4), 16);
+    const int p2r = uniform_mod(bits(5), 15);
     const int p2 = p2r >= p1 ? p2r + 1 : p2r;
-    const int v1 = tile_value(bits[6 * B + lane]);
-    const int v2 = tile_value(bits[7 * B + lane]);
+    const int v1 = tile_value(bits(6));
+    const int v2 = tile_value(bits(7));
 #pragma unroll
     for (int i = 0; i < 16; ++i) nc[i] = i == p1 ? v1 : (i == p2 ? v2 : 0);
   }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) c[i] = nc[i];
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+step_kernel(const int8_t* __restrict__ boards,
+            const int32_t* __restrict__ actions,
+            const uint32_t* __restrict__ bits,
+            const uint8_t* __restrict__ force_done,
+            int8_t* __restrict__ out_boards, int32_t* __restrict__ out_score,
+            uint8_t* __restrict__ out_valid, uint8_t* __restrict__ out_done,
+            int8_t* __restrict__ out_max, int8_t* __restrict__ out_second,
+            uint8_t* __restrict__ out_game_over,
+            int8_t* __restrict__ out_pre_reset,
+            int8_t* __restrict__ out_legal, int batch) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= batch) return;
+  const size_t B = static_cast<size_t>(batch);
+
+  int c[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) c[i] = boards[i * B + lane];
+  RowBits rows{bits, B, lane};
+  const StepResult s = env_step(
+      c, actions[lane], force_done != nullptr,
+      [&](int) { return force_done[lane] != 0; }, rows, out_pre_reset, B,
+      lane);
 
 #pragma unroll
-  for (int i = 0; i < 16; ++i) out_boards[i * B + lane] = nc[i];
-  out_score[lane] = score;
-  out_valid[lane] = moved;
-  out_done[lane] = done;
-  out_max[lane] = mx;
-  out_second[lane] = second;
-  if (out_game_over != nullptr) out_game_over[lane] = game_over;
+  for (int i = 0; i < 16; ++i) out_boards[i * B + lane] = c[i];
+  out_score[lane] = s.score;
+  out_valid[lane] = s.moved;
+  out_done[lane] = s.done;
+  out_max[lane] = s.mx;
+  out_second[lane] = s.second;
+  if (out_game_over != nullptr) out_game_over[lane] = s.game_over;
   if (out_legal != nullptr) {
     // Legality of the post-reset board: the next step's action mask.
-    legal_dirs(nc, legal);
+    bool legal[4];
+    legal_dirs(c, legal);
 #pragma unroll
     for (int d = 0; d < 4; ++d) out_legal[d * B + lane] = legal[d];
+  }
+}
+
+// The rollout's inputs and outputs. The stall lanes are read and written
+// only in shaped mode, the latch lanes only in latch mode, `bits` only
+// without Philox.
+struct RolloutArgs {
+  const int8_t* boards;
+  const int32_t* score;
+  const int32_t* steps;
+  const float* ret;
+  const uint32_t* bits;  // (8 * k, B)
+  const int32_t* consec_action;
+  const int32_t* consec_count;
+  const int8_t* latched;
+  const int32_t* fscore;
+  const int32_t* fsteps;
+  const int8_t* fmax;
+  const int32_t* acnt;  // (4, B)
+  int8_t* out_boards;
+  int32_t* out_score;
+  int32_t* out_steps;
+  float* out_ret;
+  int32_t* out_reward_sum;
+  int32_t* out_done_count;
+  int32_t* out_consec_action;
+  int32_t* out_consec_count;
+  int8_t* out_latched;
+  int32_t* out_fscore;
+  int32_t* out_fsteps;
+  int8_t* out_fmax;
+  int32_t* out_acnt;
+  int k;
+  bool terminal_bonus;
+  int stall_limit;
+  bool reset_shaping;
+  uint64_t seed;
+  uint64_t step;
+  int batch;
+};
+
+template <bool kShaped, bool kLatch, bool kPhilox>
+__global__ void __launch_bounds__(kThreads) rollout_kernel(RolloutArgs a) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= a.batch) return;
+  const size_t B = static_cast<size_t>(a.batch);
+
+  int c[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) c[i] = a.boards[i * B + lane];
+  int ep_score = a.score[lane], ep_steps = a.steps[lane];
+  float ep_ret = a.ret[lane];
+  int reward_sum = 0, done_count = 0;
+  int consec_action = 0, consec_count = 0;
+  if (kShaped) {
+    consec_action = a.consec_action[lane];
+    consec_count = a.consec_count[lane];
+  }
+  int latched = 0, fscore = 0, fsteps = 0, fmax = 0;
+  int acnt[4] = {0, 0, 0, 0};
+  if (kLatch) {
+    latched = a.latched[lane];
+    fscore = a.fscore[lane];
+    fsteps = a.fsteps[lane];
+    fmax = a.fmax[lane];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) acnt[d] = a.acnt[d * B + lane];
+  }
+  const uint2 key = make_uint2(static_cast<uint32_t>(a.seed),
+                               static_cast<uint32_t>(a.seed >> 32));
+
+  for (int it = 0; it < a.k; ++it) {
+    // The stall count advances on the resolved action; past the limit the
+    // episode is forced to end (shaped mode only).
+    int new_count = 0;
+    auto stall = [&](int action) {
+      new_count = action == consec_action ? consec_count + 1 : 1;
+      return new_count > a.stall_limit;
+    };
+    StepResult s;
+    if (kPhilox) {
+      PhiloxBits bits(key, static_cast<uint32_t>(lane), a.step + it);
+      s = env_step(c, -1, kShaped, stall, bits, nullptr, B, lane);
+    } else {
+      RowBits bits{a.bits + static_cast<size_t>(8 * it) * B, B, lane};
+      s = env_step(c, -1, kShaped, stall, bits, nullptr, B, lane);
+    }
+
+    int reward = 0;
+    if (kShaped) {
+      // The stall lanes carry across episodes unless reset_shaping; a
+      // shaped window keeps no reward sums (its rewards are float shaping
+      // outside the kernel).
+      consec_action = s.action;
+      consec_count = new_count;
+      if (a.reset_shaping && s.done) {
+        consec_action = -1;
+        consec_count = 0;
+      }
+    } else {
+      // Simple reward, and the training loop's terminal bonus on the top
+      // two exponents of the finished board.
+      reward = !s.moved && !s.done ? -10 : s.score;
+      if (a.terminal_bonus && s.done) {
+        reward += s.mx >= 11                      ? 100
+                  : s.mx >= 10 && s.second >= 10 ? 50
+                                                  : 0;
+      }
+      reward_sum += reward;
+    }
+    done_count += s.done;
+    if (kLatch) {
+      // A lane's first completion, from the pre-reset episode values; its
+      // actions count while it is live, this step's included.
+      const bool live = latched == 0;
+      if (live && s.done) {
+        fscore = ep_score + s.score;
+        fsteps = ep_steps + 1;
+        fmax = s.mx;
+        latched = 1;
+      }
+#pragma unroll
+      for (int d = 0; d < 4; ++d) acnt[d] += live && s.action == d;
+    }
+    ep_score = s.done ? 0 : ep_score + s.score;
+    ep_steps = s.done ? 0 : ep_steps + 1;
+    const float new_ret = ep_ret + static_cast<float>(reward);
+    ep_ret = s.done ? 0.0f : new_ret;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a.out_boards[i * B + lane] = c[i];
+  a.out_score[lane] = ep_score;
+  a.out_steps[lane] = ep_steps;
+  a.out_ret[lane] = ep_ret;
+  a.out_reward_sum[lane] = reward_sum;
+  a.out_done_count[lane] = done_count;
+  if (kShaped) {
+    a.out_consec_action[lane] = consec_action;
+    a.out_consec_count[lane] = consec_count;
+  }
+  if (kLatch) {
+    a.out_latched[lane] = latched;
+    a.out_fscore[lane] = fscore;
+    a.out_fsteps[lane] = fsteps;
+    a.out_fmax[lane] = fmax;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) a.out_acnt[d * B + lane] = acnt[d];
+  }
+}
+
+template <bool kShaped, bool kLatch>
+void launch_rollout(const RolloutArgs& a, int blocks, cudaStream_t stream) {
+  if (a.bits == nullptr) {
+    rollout_kernel<kShaped, kLatch, true><<<blocks, kThreads, 0, stream>>>(a);
+  } else {
+    rollout_kernel<kShaped, kLatch, false><<<blocks, kThreads, 0, stream>>>(a);
   }
 }
 
@@ -285,5 +550,72 @@ extern "C" int tpu2048_step_kernel(
       static_cast<uint8_t*>(out_game_over),
       static_cast<int8_t*>(out_pre_reset), static_cast<int8_t*>(out_legal),
       batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one rollout window of k steps on `stream` of device `device`.
+// bits == nullptr selects Philox bits keyed by `seed` from step `step`;
+// consec_action == nullptr turns off shaped mode (its four lane pointers
+// are then not read), latched == nullptr the latches (ten pointers). Returns
+// the cudaError_t of the launch.
+extern "C" int tpu2048_rollout_kernel(
+    const void* boards, const void* score, const void* steps, const void* ret,
+    const void* bits, const void* consec_action, const void* consec_count,
+    const void* latched, const void* fscore, const void* fsteps,
+    const void* fmax, const void* acnt, void* out_boards, void* out_score,
+    void* out_steps, void* out_ret, void* out_reward_sum,
+    void* out_done_count, void* out_consec_action, void* out_consec_count,
+    void* out_latched, void* out_fscore, void* out_fsteps, void* out_fmax,
+    void* out_acnt, int k, int terminal_bonus, int stall_limit,
+    int reset_shaping, unsigned long long seed, unsigned long long step,
+    int batch, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RolloutArgs a;
+  a.boards = static_cast<const int8_t*>(boards);
+  a.score = static_cast<const int32_t*>(score);
+  a.steps = static_cast<const int32_t*>(steps);
+  a.ret = static_cast<const float*>(ret);
+  a.bits = static_cast<const uint32_t*>(bits);
+  a.consec_action = static_cast<const int32_t*>(consec_action);
+  a.consec_count = static_cast<const int32_t*>(consec_count);
+  a.latched = static_cast<const int8_t*>(latched);
+  a.fscore = static_cast<const int32_t*>(fscore);
+  a.fsteps = static_cast<const int32_t*>(fsteps);
+  a.fmax = static_cast<const int8_t*>(fmax);
+  a.acnt = static_cast<const int32_t*>(acnt);
+  a.out_boards = static_cast<int8_t*>(out_boards);
+  a.out_score = static_cast<int32_t*>(out_score);
+  a.out_steps = static_cast<int32_t*>(out_steps);
+  a.out_ret = static_cast<float*>(out_ret);
+  a.out_reward_sum = static_cast<int32_t*>(out_reward_sum);
+  a.out_done_count = static_cast<int32_t*>(out_done_count);
+  a.out_consec_action = static_cast<int32_t*>(out_consec_action);
+  a.out_consec_count = static_cast<int32_t*>(out_consec_count);
+  a.out_latched = static_cast<int8_t*>(out_latched);
+  a.out_fscore = static_cast<int32_t*>(out_fscore);
+  a.out_fsteps = static_cast<int32_t*>(out_fsteps);
+  a.out_fmax = static_cast<int8_t*>(out_fmax);
+  a.out_acnt = static_cast<int32_t*>(out_acnt);
+  a.k = k;
+  a.terminal_bonus = terminal_bonus != 0;
+  a.stall_limit = stall_limit;
+  a.reset_shaping = reset_shaping != 0;
+  a.seed = seed;
+  a.step = step;
+  a.batch = batch;
+  const int blocks = (batch + kThreads - 1) / kThreads;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool shaped = consec_action != nullptr;
+  const bool latch = latched != nullptr;
+  if (shaped && latch) {
+    launch_rollout<true, true>(a, blocks, st);
+  } else if (shaped) {
+    launch_rollout<true, false>(a, blocks, st);
+  } else if (latch) {
+    launch_rollout<false, true>(a, blocks, st);
+  } else {
+    launch_rollout<false, false>(a, blocks, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }

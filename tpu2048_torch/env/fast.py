@@ -1,19 +1,23 @@
-"""Fast batched env on the env-step kernel, the port of
-:mod:`tpu2048.env.fast` (simple and shaped reward modes).
+"""Fast batched env on the env kernels, the port of :mod:`tpu2048.env.fast`
+(simple and shaped reward modes).
 
 Board state lives cell-major ``(16, B)`` on the device and each step is one
 launch of :func:`tpu2048_torch.ops.step_kernel.fused_env_step`; the reward,
 the terminal bonus, the shaped env's stall lanes and the episode lanes are a
-few tensor ops outside it.
+few tensor ops outside it. :func:`fast_rollout` and
+:func:`fast_rollout_eval` play k random-legal steps in one launch of
+:func:`tpu2048_torch.ops.step_kernel.fused_env_rollout`.
 
 Randomness comes from an explicit bit source: a callable ``batch -> (8,
 batch)`` int32 tensor of raw uint32 bit patterns, one draw per step.
 :class:`GeneratorBits` draws them from a ``torch.Generator`` on the device;
-:class:`ReplayBits` replays given rows (the tests feed it the bits the JAX
-package draws). The JAX state's ``seed`` field, which keyed those draws,
-therefore has no counterpart in :class:`FastEnvState`. The kernel's
-random-legal pick (``_rand_legal_action`` in the JAX module) lives beside
-the kernel, as :func:`tpu2048_torch.ops.step_kernel.rand_legal_action`.
+:class:`PhiloxBits` from Philox keyed by a seed, which the rollout kernel
+draws in-kernel; :class:`ReplayBits` replays given rows (the tests feed it
+the bits the JAX package draws). The JAX state's ``seed`` field, which
+keyed those draws, therefore has no counterpart in :class:`FastEnvState`.
+The kernel's random-legal pick (``_rand_legal_action`` in the JAX module)
+lives beside the kernel, as
+:func:`tpu2048_torch.ops.step_kernel.rand_legal_action`.
 """
 
 from __future__ import annotations
@@ -102,6 +106,27 @@ class GeneratorBits:
             -(2**31), 2**31, (8, batch), dtype=torch.int32,
             generator=self.generator, device=self.device,
         )
+
+
+class PhiloxBits:
+    """Bit source for the rollout path: Philox4x32-10 keyed by ``seed`` (64
+    bits) and counted by lane and step. Called, it returns the rows of step
+    :attr:`step` and advances it; the rollout functions hand ``seed`` and
+    ``step`` to the kernel, which draws the same rows in-kernel, and
+    :meth:`advance` the counter by their window."""
+
+    def __init__(self, seed: int, device: torch.device):
+        self.seed = seed % 2**64
+        self.step = 0
+        self.device = torch.device(device)
+
+    def __call__(self, batch: int) -> torch.Tensor:
+        rows = sk.philox_rows(self.seed, self.step, 1, batch, self.device)
+        self.step += 1
+        return rows
+
+    def advance(self, k: int) -> None:
+        self.step += k
 
 
 class ReplayBits:
@@ -326,3 +351,96 @@ def _shaped_fast_step(config: FastEnvConfig, state: ShapedFastEnvState, bits,
         last_consec_penalty=last_penalty,
     )
     return new_state, ts
+
+
+def _rollout(config: FastEnvConfig, state: FastEnvState, bits, k_steps: int,
+             latch_state=None):
+    """One :func:`~tpu2048_torch.ops.step_kernel.fused_env_rollout` launch:
+    Philox mode with a :class:`PhiloxBits` source, else ``k_steps`` draws of
+    ``bits`` as the window's rows. Returns the new state (``legal`` stale;
+    for a shaped state ``prev_max`` and ``last_consec_penalty`` stale too),
+    ``reward_sum``, ``done_count`` and the new latch tuple or None."""
+    b = state.batch_size
+    if isinstance(bits, PhiloxBits):
+        rows, source = None, dict(seed=bits.seed, step=bits.step)
+        bits.advance(k_steps)
+    else:
+        rows, source = torch.cat([bits(b) for _ in range(k_steps)]), {}
+    outs = sk.fused_env_rollout(
+        state.boards, state.score, state.episode_steps, state.episode_return,
+        k_steps, rows, latch_state,
+        (state.consec_action, state.consec_count) if config.shaped else None,
+        terminal_bonus=config.terminal_bonus,
+        stall_limit=config.stall_force_done,
+        reset_shaping=config.reset_shaping, **source,
+    )
+    boards, score, steps, ep_ret, reward_sum, done_count = outs[:6]
+    lanes = dict(boards=boards, legal=state.legal, score=score,
+                 episode_steps=steps, episode_return=ep_ret)
+    if config.shaped:
+        consec_action, consec_count = outs[-1]
+        new_state = dataclasses.replace(state, **lanes,
+                                        consec_action=consec_action,
+                                        consec_count=consec_count)
+    else:
+        new_state = FastEnvState(**lanes)
+    latch = outs[6] if latch_state is not None else None
+    return new_state, reward_sum, done_count, latch
+
+
+def fast_rollout(config: FastEnvConfig, state: FastEnvState, bits,
+                 k_steps: int):
+    """``k_steps`` random-legal steps in one kernel launch
+    (``tpu2048.env.fast.fast_rollout``).
+
+    Equal to ``k_steps`` calls of :func:`fast_step` with ``actions=None``
+    (a shaped state: the resolved actions) on the same bits, except that
+    ``state.legal`` goes stale. Returns
+    ``(new_state, reward_sum, done_count)``, ``(B,)`` int32 window totals.
+    A shaped config runs too (the stall count advances in-kernel on the
+    resolved action), but keeps no reward lanes: ``reward_sum`` is zeros,
+    and ``episode_return``, ``prev_max`` and ``last_consec_penalty`` go
+    stale, as in the reference (``fast.py:376-383``).
+    """
+    new_state, reward_sum, done_count, _ = _rollout(config, state, bits,
+                                                    k_steps)
+    return new_state, reward_sum, done_count
+
+
+@dataclasses.dataclass
+class EvalLatch:
+    """Per-lane first-completion latches of random-policy eval, carried in
+    registers through the rollout kernel (``tpu2048.env.fast.EvalLatch``)."""
+
+    latched: torch.Tensor  # (B,) int8: 1 once the lane's first game ended
+    score: torch.Tensor  # (B,) int32: episode merge score at first done
+    steps: torch.Tensor  # (B,) int32: episode length at first done
+    max_exp: torch.Tensor  # (B,) int8: max tile exponent at first done
+    action_counts: torch.Tensor  # (4, B) int32: live-step action counts
+
+
+def eval_latch_init(batch_size: int, device) -> EvalLatch:
+    def zero(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return EvalLatch(
+        latched=zero((batch_size,), torch.int8),
+        score=zero((batch_size,), torch.int32),
+        steps=zero((batch_size,), torch.int32),
+        max_exp=zero((batch_size,), torch.int8),
+        action_counts=zero((4, batch_size), torch.int32),
+    )
+
+
+def fast_rollout_eval(config: FastEnvConfig, state: FastEnvState,
+                      latch: EvalLatch, bits, k_steps: int):
+    """``k_steps`` random-legal steps with in-kernel first-completion
+    latches (``tpu2048.env.fast.fast_rollout_eval``): the window of
+    :func:`fast_rollout`, and each lane's first episode end records its
+    score, length and max exponent while live actions count by direction.
+    Returns ``(new_state, new_latch)``."""
+    new_state, _, _, lat = _rollout(
+        config, state, bits, k_steps,
+        (latch.latched, latch.score, latch.steps, latch.max_exp,
+         latch.action_counts))
+    return new_state, EvalLatch(*lat)

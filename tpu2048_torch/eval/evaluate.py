@@ -4,7 +4,8 @@ engine).
 Plays full games under a policy on the fast env and collects the score,
 max-tile, length and per-action distributions. The env auto-resets finished
 boards, so each lane's FIRST completion is latched and its free restarts are
-left out of the action counts.
+left out of the action counts. The random-legal policy runs inside the
+rollout kernel, 16 steps a launch with the latches in registers.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from tpu2048_torch.ops.step_kernel import from_cell_major
 # Steps between host checks of "every game is over", as in the JAX harness:
 # a batch plays whole chunks, so max_steps=64 plays 96 steps.
 STEPS_PER_CALL = 32
+# Steps a rollout launch plays in random-policy eval, as in the JAX harness.
+RANDOM_STEPS_PER_CALL = 16
 
 
 @dataclasses.dataclass
@@ -35,6 +38,9 @@ class Policy:
 
     fn: Callable
     params: object = ()
+    # True for the uniform-over-legal policy: the rollout kernel draws the
+    # same distribution in-kernel, so eval runs it 16 steps a launch.
+    in_kernel_random: bool = False
 
     def __call__(self, boards, legal_mask):
         return self.fn(self.params, boards, legal_mask)
@@ -45,6 +51,20 @@ def as_policy(policy) -> Policy:
     if isinstance(policy, Policy):
         return policy
     return Policy(fn=lambda p, b, m: policy(b, m))
+
+
+def _in_kernel_only(params, boards, legal_mask):
+    raise TypeError("the random-legal policy is drawn inside the rollout "
+                    "kernel from the eval's bit source: play it through "
+                    "evaluate()")
+
+
+def random_legal_policy() -> Policy:
+    """Uniform over the legal moves (GameDemo.py:272-285's random mode, with
+    the JAX harness's delta: the reference also picks illegal moves).
+    :func:`evaluate` plays it inside the rollout kernel on the eval's bit
+    source; it has no per-step function to call."""
+    return Policy(fn=_in_kernel_only, in_kernel_random=True)
 
 
 def _argmax_legal(q, legal_mask):
@@ -151,6 +171,9 @@ def _evaluate_fast(policy: Policy, num_games, bits, env_config, batch_size,
     """One kernel launch per step; the first completion of each lane is
     latched (score = pre-step episode score + the terminal move's merge
     score; tile and length from the terminal timestep)."""
+    if policy.in_kernel_random:
+        return _evaluate_fast_random(num_games, bits, env_config, batch_size,
+                                     max_steps)
     fcfg = fastlib.for_env(env_config)
     start = time.perf_counter()
     scores: List[np.ndarray] = []
@@ -198,6 +221,56 @@ def _evaluate_fast(policy: Policy, num_games, bits, env_config, batch_size,
         tiles.append(final_tile.cpu().numpy())
         lengths.append(final_len.cpu().numpy())
         action_counts += act_counts.cpu().numpy()
+        remaining -= b
+
+    return EvalResult(
+        scores=np.concatenate(scores),
+        max_tiles=np.concatenate(tiles),
+        lengths=np.concatenate(lengths),
+        action_counts=action_counts,
+        batch_steps=batch_steps,
+        env_steps=env_steps,
+        seconds=time.perf_counter() - start,
+    )
+
+
+def _evaluate_fast_random(num_games, bits, env_config, batch_size,
+                          max_steps) -> EvalResult:
+    """Random-policy eval on the rollout kernel: 16 steps a launch, the
+    first-completion latches in the kernel, and a host check after each
+    launch that stops once every lane has latched. Lanes that never finished
+    record their current standing, as in :func:`_evaluate_fast`."""
+    fcfg = fastlib.for_env(env_config)
+    k = RANDOM_STEPS_PER_CALL
+    start = time.perf_counter()
+    scores: List[np.ndarray] = []
+    tiles: List[np.ndarray] = []
+    lengths: List[np.ndarray] = []
+    action_counts = np.zeros(4, np.int64)
+    batch_steps = env_steps = 0
+    remaining = num_games
+    while remaining > 0:
+        b = min(batch_size, remaining)
+        state = fastlib.fast_reset(bits, b, fcfg)
+        latch = fastlib.eval_latch_init(b, state.boards.device)
+        for _ in range(max_steps // k + 1):
+            state, latch = fastlib.fast_rollout_eval(fcfg, state, latch,
+                                                     bits, k)
+            batch_steps += k
+            env_steps += k * b
+            if bool(latch.latched.all()):
+                break
+        done = latch.latched != 0
+        exp = latch.max_exp.to(torch.int32)
+        final_tile = torch.where(
+            done, torch.where(exp > 0, torch.ones_like(exp) << exp, 0),
+            board_ops.max_tile_value(from_cell_major(state.boards)))
+        scores.append(torch.where(done, latch.score, state.score).cpu()
+                      .numpy())
+        tiles.append(final_tile.cpu().numpy())
+        lengths.append(torch.where(done, latch.steps, state.episode_steps)
+                       .cpu().numpy())
+        action_counts += latch.action_counts.sum(1).cpu().numpy()
         remaining -= b
 
     return EvalResult(

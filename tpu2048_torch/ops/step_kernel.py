@@ -1,10 +1,11 @@
-"""The env-step kernel: one whole 2048 step per lane, the port of
-:mod:`tpu2048.ops.pallas_step`'s ``_step_kernel``.
+"""The env kernels: one whole 2048 step per lane, and k random-legal steps
+per lane in one launch; the port of :mod:`tpu2048.ops.pallas_step`'s
+``_step_kernel`` and ``_rollout_kernel``.
 
-:func:`fused_env_step` launches the CUDA kernel in ``csrc/step_kernel.cu`` on
-a CUDA tensor and runs :func:`plain_env_step`, the same function in plain
-PyTorch, on a CPU tensor. There is no fallback from the card to the plain
-version.
+:func:`fused_env_step` and :func:`fused_env_rollout` launch the CUDA kernels
+in ``csrc/step_kernel.cu`` on a CUDA tensor and run :func:`plain_env_step`
+and :func:`plain_env_rollout`, the same functions in plain PyTorch, on a CPU
+tensor. There is no fallback from the card to the plain versions.
 
 Layout: boards are cell-major ``(16, B)`` int8 (cell ``r*4+c`` is row
 ``r*4+c``). Randomness comes from the caller as ``(8, B)`` int32 rows that
@@ -12,6 +13,11 @@ hold the raw uint32 bit patterns, in the TPU kernel's row order: action-pick,
 unused, spawn-pos, spawn-val, reset-p1, reset-p2, reset-v1, reset-v2. torch
 has no unsigned 32-bit arithmetic on the CPU, so the plain version widens the
 rows to int64 and masks them; the kernel reads them as ``uint32_t``.
+
+The rollout's production bits are Philox4x32-10 (Random123), drawn inside the
+kernel; :func:`philox_rows` is the same generator in plain PyTorch. It is
+keyed by a 64-bit seed and counts by ``(lane, step_lo, step_hi, half)``:
+half 0 gives bit rows 0-3 of step ``step`` and half 1 rows 4-7.
 
 The kernel is built with ``nvcc`` at first use, from the source in the
 package, into ``build/`` beside the package, and loaded with ``ctypes``
@@ -135,6 +141,126 @@ def plain_env_step(boards, actions, rng_bits, force_done=None, *,
     return out
 
 
+_MASK32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # key increments (Weyl constants)
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """High and low words of ``a * m`` for int64 ``a`` in ``[0, 2**32)``: each
+    product with a 16-bit half of ``m`` stays below ``2**48``."""
+    lo_part = a * (m & 0xFFFF)
+    hi_part = a * (m >> 16)
+    lo = (((hi_part & 0xFFFF) << 16) + lo_part) & _MASK32
+    hi = (hi_part + (lo_part >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 on int64 tensors (or ints) holding uint32 words:
+    ``counter`` four words, ``key`` two; returns the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for i in range(10):
+        if i:
+            k0 = (k0 + PHILOX_W[0]) & _MASK32
+            k1 = (k1 + PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(c0, PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _as_int32(values: torch.Tensor) -> torch.Tensor:
+    """int64 values in ``[0, 2**32)`` -> int32 storage of the same pattern."""
+    return ((values ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def philox_rows(seed: int, step: int, k: int, b: int, device) -> torch.Tensor:
+    """The ``(8 * k, b)`` int32 bit rows of steps ``step .. step + k - 1``
+    that the rollout kernel draws in Philox mode for lanes ``0 .. b - 1``."""
+    lane = torch.arange(b, dtype=torch.int64, device=device)
+    key = (seed & _MASK32, (seed >> 32) & _MASK32)
+    rows = []
+    for s in range(step, step + k):
+        lo, hi = torch.full_like(lane, s & _MASK32), torch.full_like(
+            lane, (s >> 32) & _MASK32)
+        for half in (0, 1):
+            rows += philox4x32((lane, lo, hi, torch.full_like(lane, half)),
+                               key)
+    return _as_int32(torch.stack(rows))
+
+
+def plain_env_rollout(boards, score, steps, episode_return, k_steps,
+                      rng_bits=None, latch_state=None, stall_state=None, *,
+                      seed=None, step=None, terminal_bonus: bool = True,
+                      stall_limit: int = 100, reset_shaping: bool = False):
+    """The rollout kernel's function in plain PyTorch: ``k_steps`` calls of
+    :func:`plain_env_step` with the resolved random-legal action, and the
+    window sums, latches and stall lanes of ``pallas_step._rollout_kernel``.
+    Arguments and outputs are those of :func:`fused_env_rollout`; with no
+    ``rng_bits`` the rows come from :func:`philox_rows` at ``seed``,
+    ``step``."""
+    b = boards.shape[1]
+    device = boards.device
+    if rng_bits is None:
+        rng_bits = philox_rows(seed, step, k_steps, b, device)
+    shaped = stall_state is not None
+    latch = latch_state is not None
+    if shaped:
+        consec_action, consec_count = stall_state
+    if latch:
+        latched, fscore, fsteps, fmax, acnt = latch_state
+    ep_score, ep_steps, ep_ret = score, steps, episode_return
+    reward_sum = torch.zeros(b, dtype=torch.int32, device=device)
+    done_count = torch.zeros(b, dtype=torch.int32, device=device)
+    directions = torch.arange(4, dtype=torch.int32, device=device)
+    for it in range(k_steps):
+        bits = rng_bits[8 * it:8 * it + 8]
+        legal = board_ops.legal_moves_mask(from_cell_major(boards))
+        action = rand_legal_action(legal, bits[0])
+        force_done = None
+        if shaped:
+            new_count = torch.where(action == consec_action,
+                                    consec_count + 1, 1)
+            force_done = new_count > stall_limit
+        boards, merge, moved, done, mx, second = plain_env_step(
+            boards, action, bits, force_done)[:6]
+        if shaped:
+            consec_action, consec_count = action, new_count
+            if reset_shaping:
+                consec_action = torch.where(done, -1, consec_action)
+                consec_count = torch.where(done, 0, consec_count)
+            reward = torch.zeros_like(merge)
+        else:
+            reward = torch.where(~moved & ~done, -10, merge)
+            if terminal_bonus:
+                bonus = torch.where(
+                    mx >= 11, 100,
+                    torch.where((mx >= 10) & (second >= 10), 50, 0))
+                reward = reward + torch.where(done, bonus, 0).to(torch.int32)
+            reward_sum = reward_sum + reward
+        done_count = done_count + done.to(torch.int32)
+        if latch:
+            live = latched == 0
+            newly = live & done
+            fscore = torch.where(newly, ep_score + merge, fscore)
+            fsteps = torch.where(newly, ep_steps + 1, fsteps)
+            fmax = torch.where(newly, mx, fmax)
+            acnt = acnt + ((directions[:, None] == action)
+                           & live).to(torch.int32)
+            latched = torch.where(newly, 1, latched)
+        ep_score = torch.where(done, 0, ep_score + merge)
+        ep_steps = torch.where(done, 0, ep_steps + 1)
+        ep_ret = torch.where(done, 0.0, ep_ret + reward.to(torch.float32))
+    out = (boards, ep_score, ep_steps, ep_ret, reward_sum, done_count)
+    if latch:
+        out += ((latched, fscore, fsteps, fmax, acnt),)
+    if shaped:
+        out += ((consec_action, consec_count),)
+    return out
+
+
 def _check(name, t, shape, dtype, device):
     if t.shape != shape or t.dtype != dtype:
         raise ValueError(
@@ -152,9 +278,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.tpu2048_rollout_kernel
+    fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4
+                   + [ctypes.c_uint64] * 2
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("step_kernel.cu", _declare)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def fused_env_step(boards, actions, rng_bits, force_done=None, *,
@@ -219,13 +354,11 @@ def fused_env_step(boards, actions, rng_bits, force_done=None, *,
     legal = (torch.empty((4, b), dtype=torch.int8, device=device)
              if emit_legal else None)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = lib.tpu2048_step_kernel(
-        ptr(boards), ptr(actions), ptr(rng_bits), ptr(force_done),
-        ptr(out_boards), ptr(score), ptr(valid), ptr(done), ptr(max_exp),
-        ptr(second_exp), ptr(game_over), ptr(pre_reset), ptr(legal), b,
+        _ptr(boards), _ptr(actions), _ptr(rng_bits), _ptr(force_done),
+        _ptr(out_boards), _ptr(score), _ptr(valid), _ptr(done),
+        _ptr(max_exp), _ptr(second_exp), _ptr(game_over), _ptr(pre_reset),
+        _ptr(legal), b,
         device.index, torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -240,3 +373,120 @@ def fused_env_step(boards, actions, rng_bits, force_done=None, *,
 
 
 fused_env_step.launches = 0
+
+
+def fused_env_rollout(boards, score, steps, episode_return, k_steps,
+                      rng_bits=None, latch_state=None, stall_state=None, *,
+                      seed=None, step=None, terminal_bonus: bool = True,
+                      stall_limit: int = 100, reset_shaping: bool = False):
+    """``k_steps`` random-legal env steps for the whole batch in one launch.
+
+    Port of ``tpu2048.ops.pallas_step.fused_env_rollout``, with the same
+    outputs in the same order and types. Without its TPU knobs
+    (``block_size``, ``interpret``); its on-core PRNG becomes Philox,
+    selected by giving ``seed`` and ``step`` instead of ``rng_bits``.
+
+    Args:
+      boards: ``(16, B)`` int8 cell-major exponent boards.
+      score, steps: ``(B,)`` int32 episode merge score and step count.
+      episode_return: ``(B,)`` float32 episode reward sum.
+      k_steps: steps in the window, at least 1.
+      rng_bits: ``(8 * k_steps, B)`` int32 bit rows, 8 a step in
+        :func:`fused_env_step`'s row order; or None with ``seed`` (a 64-bit
+        Philox key) and ``step`` (the stream's step counter of the window's
+        first step).
+      latch_state: optional ``(latched, fscore, fsteps, fmax, acnt)``: ``(B,)``
+        int8, int32, int32, int8 and ``(4, B)`` int32. Each lane's first
+        completion latches its score, length and max exponent; its actions
+        count while it is not latched.
+      stall_state: optional ``(consec_action, consec_count)`` ``(B,)`` int32:
+        shaped mode. The count advances on the resolved action, a count above
+        ``stall_limit`` ends the episode, done follows the v1 rule
+        ``(~moved & game_over) | forced``, and the lanes clear on done only
+        with ``reset_shaping``. A shaped window keeps no reward lanes:
+        ``reward_sum`` is zeros and ``episode_return`` only resets on done.
+      terminal_bonus: add the terminal bonus to the simple reward.
+
+    Returns:
+      ``(new_boards, new_score, new_steps, new_episode_return, reward_sum,
+      done_count[, latch_state'][, stall_state'])``; ``reward_sum`` (-10 for
+      an invalid move that does not end the episode, else the merge score,
+      plus the bonus) and ``done_count`` are ``(B,)`` int32 window totals.
+
+    A CPU tensor runs :func:`plain_env_rollout`; a CUDA tensor launches the
+    kernel (and counts it in ``fused_env_rollout.launches``) or raises.
+    """
+    device = boards.device
+    if boards.dim() != 2 or boards.shape[0] != 16:
+        raise ValueError(f"boards: expected (16, B), got {tuple(boards.shape)}")
+    b = boards.shape[1]
+    if b == 0:
+        raise ValueError("empty batch")
+    if k_steps < 1:
+        raise ValueError(f"k_steps must be at least 1, got {k_steps}")
+    _check("boards", boards, (16, b), torch.int8, device)
+    _check("score", score, (b,), torch.int32, device)
+    _check("steps", steps, (b,), torch.int32, device)
+    _check("episode_return", episode_return, (b,), torch.float32, device)
+    if rng_bits is None:
+        if seed is None or step is None:
+            raise ValueError("give rng_bits, or seed and step")
+        if not (0 <= seed < 2**64 and 0 <= step and step + k_steps <= 2**64):
+            raise ValueError(f"seed {seed} or step {step} out of range")
+    else:
+        if seed is not None or step is not None:
+            raise ValueError("give rng_bits or seed and step, not both")
+        _check("rng_bits", rng_bits, (8 * k_steps, b), torch.int32, device)
+    if latch_state is not None:
+        for name, t, shape, dtype in zip(
+                ("latched", "fscore", "fsteps", "fmax", "acnt"), latch_state,
+                ((b,), (b,), (b,), (b,), (4, b)),
+                (torch.int8, torch.int32, torch.int32, torch.int8,
+                 torch.int32)):
+            _check(name, t, shape, dtype, device)
+    if stall_state is not None:
+        for name, t in zip(("consec_action", "consec_count"), stall_state):
+            _check(name, t, (b,), torch.int32, device)
+    kwargs = dict(seed=seed, step=step, terminal_bonus=terminal_bonus,
+                  stall_limit=stall_limit, reset_shaping=reset_shaping)
+    if device.type == "cpu":
+        return plain_env_rollout(boards, score, steps, episode_return,
+                                 k_steps, rng_bits, latch_state, stall_state,
+                                 **kwargs)
+    if device.type != "cuda":
+        raise ValueError(f"no rollout kernel for device {device}")
+
+    lib = LIBRARY.load()
+
+    def like(t):
+        return torch.empty_like(t)
+
+    out = [like(boards), like(score), like(steps), like(episode_return),
+           like(score), like(score)]
+    latch_out = (tuple(like(t) for t in latch_state)
+                 if latch_state is not None else (None,) * 5)
+    stall_out = (tuple(like(t) for t in stall_state)
+                 if stall_state is not None else (None,) * 2)
+    latch_in = latch_state if latch_state is not None else (None,) * 5
+    stall_in = stall_state if stall_state is not None else (None,) * 2
+    err = lib.tpu2048_rollout_kernel(
+        _ptr(boards), _ptr(score), _ptr(steps), _ptr(episode_return),
+        _ptr(rng_bits), *map(_ptr, stall_in), *map(_ptr, latch_in),
+        *map(_ptr, out), *map(_ptr, stall_out), *map(_ptr, latch_out),
+        k_steps, int(terminal_bonus), stall_limit, int(reset_shaping),
+        seed or 0, step or 0, b, device.index,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
+    fused_env_rollout.launches += 1
+
+    out = tuple(out)
+    if latch_state is not None:
+        out += (latch_out,)
+    if stall_state is not None:
+        out += (stall_out,)
+    return out
+
+
+fused_env_rollout.launches = 0
