@@ -6,7 +6,10 @@ the CUDA toolkit::
     python3 chip_smoke.py
 
 Every phase is fatal on failure; without a card, or outside the repository,
-it exits non-zero and prints no result.
+it exits non-zero and prints no result. ``python3 chip_smoke.py
+--table-timing ROOT`` runs only phase 9 on the table kernels of the checkout
+at ``ROOT`` (for example an unpacked parent commit), so that two versions
+can be timed in one run on one card.
 
 1. The card's name and power limit, and the torch and CUDA versions.
 2. Build the kernels from ``tpu2048_torch/csrc`` with nvcc (sm_90a), one
@@ -30,10 +33,12 @@ it exits non-zero and prints no result.
    same work.
 6. Hold the table kernels (bucket gather, bucket scatter) against their
    plain versions on the card, on the full (2**21 + 1, 128) table filled
-   from a seeded generator: B in {1, 5, 33, 1024, 65536}, bucket indices
-   that include 0 and NB - 1, and repeated writes to the trash row. Rows
-   [0, NB) must be equal (the trash row is write-only, its write order
-   free), and the scatter must write in place.
+   from a seeded generator: B in {1, 5, 33, 1000, 1024, 4096, 65536} (1000
+   ends in a ragged stage; 4096 is ``bench --tabular``'s batch), bucket
+   indices that include 0 and NB - 1, and repeated writes to the trash row.
+   Rows [0, NB) must be equal (the trash row is write-only, its write order
+   free), and the scatter must write in place. Then both once on a side
+   stream (the wrappers launch on PyTorch's current stream).
 7. The tabular main path: ``tpu2048_torch.cli.main(["train", "tabular",
    ...])`` in process at the ``train tabular`` defaults (capacity 2**25,
    batch 1024, 256 steps a chunk, shaped reward, fast engine) for at least
@@ -46,9 +51,14 @@ it exits non-zero and prints no result.
    device): integer state equal, Q within ``Q_RTOL``. Then a narrow table
    trained on the card is saved and ``eval --policy tabular`` plays it on
    the card.
-9. Time the table kernels at B=1024 (the path's shape) and B=65536: eager,
-   device only, plain version, and the PyTorch call that computes the same
-   function (``index_select``, ``index_copy_``), beside the bound.
+9. Time the table kernels at B=1024 (the path's shape), 4096 (``bench
+   --tabular``'s) and 65536: eager, device only (replayed from a CUDA
+   graph), plain version, and the PyTorch call that computes the same
+   function (``index_select``, ``index_copy_``) eager and from a CUDA
+   graph, beside the bound. At 1024 and 4096 also the host time of a call
+   (10,000 calls, no synchronise) of the wrapper and of the PyTorch call,
+   and at 1024 its split: the C entry alone, the stream lookup, the
+   output's allocation.
 10. Hold the rollout kernel against ``plain_env_rollout`` on the card: B in
     {1, 512, 1000, 65536}, k in {1, 16}, simple with and without the
     terminal bonus and shaped (stall limit 3) with and without
@@ -123,7 +133,9 @@ Q_BF16_RTOL = 3e-2
 # Full width of the tabular slice: the `train tabular` defaults.
 TABLE_LOG2, TABLE_BATCH, TABLE_CHUNK = 25, 1024, 256
 TABLE_EPISODES = 3072  # ~1 episode a lane a chunk: 2-3 chunks
-TABLE_SIZES = (1, 5, 33, 1024, 65536)
+TABLE_SIZES = (1, 5, 33, 1000, 1024, 4096, 65536)
+TABLE_TIMING_SIZES = (TABLE_BATCH, 4096, 65536)
+HOST_CALLS = 10_000  # calls a host-time loop
 # Card against CPU, narrow trainer: the shaped reward's log2 and pow may
 # round one float32 ulp apart on the two devices, and the TD updates carry
 # that on (the CPU tests hold the port to JAX at the same tolerance).
@@ -485,11 +497,26 @@ def phase_table_equal(tk, torch, device):
         if gather_err or scatter_err:
             fail(f"table kernels != plain at B={b}: gather {gather_err}, "
                  f"scatter {scatter_err}")
+    # On a side stream, fresh rows: the wrappers launch on PyTorch's
+    # current stream, so each result is ready in stream order.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rows = torch.randint(-(2**31), 2**31, (b, tk.BUCKET, tk.WIDTH),
+                             dtype=torch.int32, generator=gen, device=device)
+        got = tk.bucket_gather(data, buckets)
+        tk.bucket_scatter_(data, ids, rows)
+        side_ok = (torch.equal(got, tk.plain_bucket_gather(mirror, buckets))
+                   and torch.equal(data[ids[written].long()],
+                                   rows.view(b, tk.ROW)[written]))
+    torch.cuda.current_stream().wait_stream(side)
+    if not side_ok:
+        fail(f"table kernels on a side stream at B={b} != plain versions")
     torch.cuda.synchronize()
     print(f"phase 6: bucket_gather and bucket_scatter_ == plain versions on "
           f"the ({nb + 1}, {tk.ROW}) table at B in {TABLE_SIZES}: rows "
-          f"[0, NB) equal, scatter in place; max |diff| {gather_err} / "
-          f"{scatter_err}")
+          f"[0, NB) equal, scatter in place, and on a side stream at "
+          f"B={TABLE_SIZES[-1]}; max |diff| {gather_err} / {scatter_err}")
     return gather_err, scatter_err
 
 
@@ -698,11 +725,33 @@ def phase_narrow(sk, tk, torch, device):
           f"{gathers} gathers = {summary['batch_steps']} steps")
 
 
+def host_us(torch, fns, n=HOST_CALLS, rounds=10):
+    """Mean host microseconds a call of each function of the dict ``fns``,
+    over ``n`` calls each with no synchronise, taken in ``rounds`` turns so
+    that a drift of the shared host's speed falls on all of them alike:
+    the caller's thread's cost, as long as the device keeps up."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    total = dict.fromkeys(fns, 0.0)
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(n // rounds):
+                fn()
+            total[name] += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return {name: t * 1e6 / (n // rounds * rounds)
+            for name, t in total.items()}
+
+
 def phase_table_timing(tk, torch, data, b):
     """Both kernels at batch ``b`` on the full table: eager, device only,
-    plain version, the PyTorch call for the same function, and the bound.
-    Every call reads other buckets (256 MB of rows in all), so the rows
-    come from device memory, not the 50 MB L2, as on the path."""
+    plain version, the PyTorch call for the same function eager and from a
+    CUDA graph, and the bound; where the call is host-bound (b <= 4096) the
+    host time of the wrapper and of the PyTorch call. Every call reads other
+    buckets (256 MB of rows in all), so the rows come from device memory,
+    not the 50 MB L2, as on the path."""
     nb = data.shape[0] - 1
     gen = torch.Generator(device=data.device).manual_seed(SEED + b)
     n_sets = max(8, (256 << 20) // (b * tk.ROW * 4))
@@ -731,19 +780,85 @@ def phase_table_timing(tk, torch, data, b):
     }
     n_bytes = b * tk.ROW * 4 * 2 + b * 4  # rows in, rows out, indices
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    n_graph = min(n_sets, 256)
     out = {}
     for name, (kernel, plain, library) in calls.items():
         row = {
             "kernel": name, "batch": b,
             "ms": elapsed_ms(torch, kernel, n_sets),
-            "graph_ms": graph_ms(torch, kernel, min(n_sets, 256)),
+            "graph_ms": graph_ms(torch, kernel, n_graph),
             "plain_ms": elapsed_ms(torch, plain, n_sets),
             "library_ms": elapsed_ms(torch, library, n_sets),
+            "library_graph_ms": graph_ms(torch, library, n_graph),
             "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": "bytes",
         }
+        if b <= 4096:
+            row.update(host_us(torch, {"host_us": kernel,
+                                       "library_host_us": library}))
         print("phase 9: " + json.dumps(row))
         out[name] = row
     return out
+
+
+def table_host_split(tk, torch, data, b):
+    """Where a wrapper call's host time goes at batch ``b``: the whole call,
+    the bare C entry (ctypes, launch and all, arguments made beforehand), the
+    stream lookup (``torch.cuda``'s, which builds a stream object, and
+    ``torch.accelerator``'s) and the gather's output allocation, beside the
+    PyTorch call. The C entries are those of the loaded library; the rest of the
+    wrapper is the difference."""
+    nb = data.shape[0] - 1
+    gen = torch.Generator(device=data.device).manual_seed(SEED + 9)
+    idx = torch.randint(0, nb, (b,), dtype=torch.int32, generator=gen,
+                        device=data.device)
+    ids = torch.randperm(nb, generator=gen, device=data.device)[:b].to(
+        torch.int32)
+    rows = torch.randint(-(2**31), 2**31, (b, tk.ROW), dtype=torch.int32,
+                         generator=gen, device=data.device)
+    out = torch.empty((b, tk.ROW), dtype=torch.int32, device=data.device)
+    lib = tk.LIBRARY.load()
+    stream = torch.cuda.current_stream(0).cuda_stream
+    gather_c, scatter_c = (lib.tpu2048_bucket_gather,
+                           lib.tpu2048_bucket_scatter)
+    args = (data.data_ptr(), idx.data_ptr(), out.data_ptr(), data.shape[0],
+            b, 0, stream)
+    sargs = (data.data_ptr(), ids.data_ptr(), rows.data_ptr(), data.shape[0],
+             b, 0, stream)
+    idx64, ids64 = idx.long(), ids.long()
+    split = {"batch": b}
+    split.update(host_us(torch, {
+        "gather_us": lambda: tk.bucket_gather(data, idx),
+        "index_select_us": lambda: torch.index_select(data, 0, idx64),
+        "gather_c_entry_us": lambda: gather_c(*args),
+        "scatter_us": lambda: tk.bucket_scatter_(data, ids, rows),
+        "index_copy_us": lambda: data.index_copy_(0, ids64, rows),
+        "scatter_c_entry_us": lambda: scatter_c(*sargs),
+        "cuda_current_stream_us": (
+            lambda: torch.cuda.current_stream(0).cuda_stream),
+        "accelerator_current_stream_us": (
+            lambda: torch.accelerator.current_stream(0).native_handle),
+        "new_empty_us": lambda: data.new_empty(b, tk.BUCKET, tk.WIDTH),
+    }))
+    print("phase 9: host split " + json.dumps(split))
+    return split
+
+
+def table_timing_only(torch, root):
+    """Phase 9 alone on the table kernels of the checkout at ``root``."""
+    root = Path(root).resolve()
+    if not (root / "tpu2048_torch" / "csrc" / "table_kernel.cu").is_file():
+        fail(f"{root} holds no tpu2048_torch package")
+    sys.path.insert(0, str(root))
+    from tpu2048_torch.ops import table_kernel as tk
+
+    print(f"phase 9: table kernels of {root} (tpu2048_torch from "
+          f"{Path(tk.__file__).parent})")
+    tk.LIBRARY.load()
+    data = torch.zeros(((1 << TABLE_LOG2) // tk.BUCKET + 1, tk.ROW),
+                       dtype=torch.int32, device=torch.device("cuda", 0))
+    for b in TABLE_TIMING_SIZES:
+        phase_table_timing(tk, torch, data, b)
+    table_host_split(tk, torch, data, TABLE_BATCH)
 
 
 def edge_boards(torch, b, device):
@@ -1127,6 +1242,14 @@ def main():
         fail(f"torch is not installed: {e}")
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    if sys.argv[1:2] == ["--table-timing"]:
+        if len(sys.argv) != 3:
+            fail("usage: chip_smoke.py [--table-timing ROOT]")
+        print(f"card: {card_line()}")
+        table_timing_only(torch, sys.argv[2])
+        return
+    if sys.argv[1:]:
+        fail("usage: chip_smoke.py [--table-timing ROOT]")
     if not (REPO / "tpu2048_torch" / "csrc" / "step_kernel.cu").is_file():
         fail(f"{REPO} holds no tpu2048_torch package: run from the repository")
     sys.path.insert(0, str(REPO))
@@ -1153,7 +1276,9 @@ def main():
     data = torch.zeros(((1 << TABLE_LOG2) // tk.BUCKET + 1, tk.ROW),
                        dtype=torch.int32, device=device)
     table_rows = phase_table_timing(tk, torch, data, TABLE_BATCH)
-    phase_table_timing(tk, torch, data, 65536)
+    for b in TABLE_TIMING_SIZES[1:]:
+        phase_table_timing(tk, torch, data, b)
+    table_host_split(tk, torch, data, TABLE_BATCH)
     del data
     torch.cuda.synchronize()
     rollout_err = phase_rollout_equal(sk, torch, device)
@@ -1175,6 +1300,7 @@ def main():
             "launches": launches, "max_abs_err": err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_graph_ms": row["library_graph_ms"],
         }
 
     print(f"card: {card}")
@@ -1191,6 +1317,7 @@ def main():
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": None,
+            "library_graph_ms": None,
         },
         table_entry("bucket_gather", 65, table_launches["gather"],
                     gather_err),
@@ -1208,6 +1335,7 @@ def main():
             "bound_ms": rollout_row["bound_ms"],
             "bound_by": rollout_row["bound_by"],
             "library_ms": None,
+            "library_graph_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@ The scatter's equality covers rows ``[0, NB)`` only: several entries write
 the trash row ``NB`` and may land in any order, and nothing reads it.
 """
 
+import ctypes
+import re
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,3 +77,94 @@ def test_wrappers_check_their_inputs():
         ttk.bucket_scatter_(data, ok, torch.zeros((4, 64), dtype=torch.int32))
     with pytest.raises(ValueError, match="device"):
         ttk.bucket_gather(data.to("meta"), ok.to("meta"))
+
+
+SOURCE = ttk.LIBRARY.source.read_text()
+
+
+def source_constant(name):
+    match = re.search(rf"constexpr int {name} = (\d+);", SOURCE)
+    assert match, f"{name} not found in {ttk.LIBRARY.source}"
+    return int(match.group(1))
+
+
+def test_launch_geometry_mirrors_the_source():
+    assert source_constant("kWarps") == ttk.WARPS
+    assert "kThreads = 32 * kWarps" in SOURCE
+    assert source_constant("kRows") == ttk.STAGE_ROWS
+    assert source_constant("kStages") == ttk.RING_STAGES
+    assert source_constant("kMaxBlocks") == ttk.MAX_BLOCKS
+    assert source_constant("kRowWords") == ttk.ROW
+    assert "kSharedBytes = kWarps * kStages * (kStageBytes + 8)" in SOURCE
+    g = ttk.launch_geometry(1)
+    assert (g.warps, g.stages, g.rows_per_stage) == (
+        ttk.WARPS, ttk.RING_STAGES, ttk.STAGE_ROWS)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 33, 1000, 1024, 4096, 65536])
+def test_ring_walk_copies_every_row_once(batch):
+    """The kernels' walk: warp w of block b runs ring r = w * blocks + b,
+    which takes chunks r, r + rings, ...; its k-th chunk goes into stage
+    k % stages, row j of the chunk into slot j. The prologue loads the first
+    `stages` chunks; iteration k waits for chunk k, stores it, then refills
+    the stage of chunk k - 1 with chunk k - 1 + stages. Every row must be
+    copied once, and a stage is loaded only after the chunk in it was
+    stored."""
+    g = ttk.launch_geometry(batch)
+    stage_bytes = g.rows_per_stage * ttk.ROW * 4
+    assert stage_bytes % 16 == 0  # bulk copies: 16-byte sizes and offsets
+    # The mbarriers lie behind the rings, 8-byte aligned.
+    assert (g.warps * g.stages * stage_bytes) % 8 == 0
+    assert g.shared_bytes == g.warps * g.stages * (stage_bytes + 8)
+    assert g.shared_bytes <= 232_448
+    chunks = -(-batch // g.rows_per_stage)
+    assert 1 <= g.blocks == min(chunks, ttk.MAX_BLOCKS)
+    rings = g.blocks * g.warps
+    copied = np.zeros(batch, np.int64)
+    busy_blocks = set()
+    for block in range(g.blocks):
+        for warp in range(g.warps):
+            ring = warp * g.blocks + block
+            n = (chunks - ring + rings - 1) // rings if ring < chunks else 0
+            if n:
+                busy_blocks.add(block)
+
+            def rows_of(k):
+                first = (ring + k * rings) * g.rows_per_stage
+                return range(first, min(first + g.rows_per_stage, batch))
+
+            held = {}  # stage -> (chunk, stored)
+
+            def load(k):
+                stage = k % g.stages
+                assert held.get(stage, (None, True))[1], "refilled early"
+                held[stage] = (k, False)
+
+            for k in range(min(g.stages, n)):
+                load(k)
+            for k in range(n):
+                assert held[k % g.stages] == (k, False)
+                rows = rows_of(k)
+                assert 1 <= len(rows) <= g.rows_per_stage
+                for slot, row in enumerate(rows):
+                    assert row - rows[0] == slot
+                    copied[row] += 1
+                held[k % g.stages] = (k, True)
+                if k >= 1 and k - 1 + g.stages < n:
+                    load(k - 1 + g.stages)
+            assert all(stored for _, stored in held.values())
+    assert busy_blocks == set(range(g.blocks))  # every block has work
+    np.testing.assert_array_equal(copied, 1)
+
+
+def test_argtypes_pass_pointers_and_n_rows_as_64_bit():
+    lib = types.SimpleNamespace(tpu2048_bucket_gather=types.SimpleNamespace(),
+                                tpu2048_bucket_scatter=types.SimpleNamespace())
+    ttk._declare(lib)
+    for fn in (lib.tpu2048_bucket_gather, lib.tpu2048_bucket_scatter):
+        data, buckets, other, n_rows, batch, device, stream = fn.argtypes
+        for t in (data, buckets, other, stream):
+            assert t is ctypes.c_void_p and ctypes.sizeof(t) == 8
+        assert ctypes.sizeof(n_rows) == 8 and n_rows(2**40).value == 2**40
+        assert batch is ctypes.c_int and device is ctypes.c_int
+        assert fn.restype is ctypes.c_int

@@ -19,6 +19,7 @@ aliased output becomes an update in place, so a step never copies the table.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,51 +47,108 @@ def plain_bucket_scatter_(data: torch.Tensor, buckets: torch.Tensor,
     return data
 
 
+#: Launch geometry, mirrored from ``csrc/table_kernel.cu`` (a test reads the
+#: constants from the source): blocks of WARPS warps, each warp with a ring
+#: of RING_STAGES stages of STAGE_ROWS rows in shared memory, and a
+#: persistent grid of at most MAX_BLOCKS blocks (two on each of the H100's
+#: 132 SMs).
+WARPS = 4
+STAGE_ROWS = 8
+RING_STAGES = 3
+MAX_BLOCKS = 264
+
+
+class Geometry(NamedTuple):
+    blocks: int
+    warps: int
+    stages: int
+    rows_per_stage: int
+    shared_bytes: int
+
+
+def launch_geometry(batch: int) -> Geometry:
+    """The launch of either kernel at ``batch`` rows. Chunk ``c`` is rows
+    ``[c * rows_per_stage, (c + 1) * rows_per_stage)``. Warp ``w`` of block
+    ``b`` runs ring ``r = w * blocks + b``, which takes chunks ``r, r +
+    rings, ...`` (``rings = blocks * warps``) and puts its ``k``-th into
+    stage ``k % stages``. Shared memory holds the rings and one 8-byte
+    mbarrier a stage."""
+    chunks = -(-batch // STAGE_ROWS)
+    return Geometry(blocks=min(chunks, MAX_BLOCKS), warps=WARPS,
+                    stages=RING_STAGES, rows_per_stage=STAGE_ROWS,
+                    shared_bytes=WARPS * RING_STAGES
+                    * (STAGE_ROWS * ROW * 4 + 8))
+
+
+#: The C entries' arguments: data, buckets, out or rows (pointers), n_rows
+#: (64-bit), batch, device, stream (a pointer).
+ARGTYPES = ((ctypes.c_void_p,) * 3
+            + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("tpu2048_bucket_gather", "tpu2048_bucket_scatter"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                               ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+    for fn in (lib.tpu2048_bucket_gather, lib.tpu2048_bucket_scatter):
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("table_kernel.cu", _declare)
+# The two C entries, resolved once when the library loads.
+_entries: Optional[tuple] = None
 
 
-def _check_table(data: torch.Tensor, buckets: torch.Tensor) -> int:
-    """Validate the table and the index vector; returns the batch."""
-    if (data.dim() != 2 or data.shape[1] != ROW or data.shape[0] < 2
-            or data.dtype != torch.int32 or not data.is_contiguous()):
+def _load_entries() -> tuple:
+    global _entries
+    lib = LIBRARY.load()
+    _entries = (lib.tpu2048_bucket_gather, lib.tpu2048_bucket_scatter)
+    return _entries
+
+
+def _check_table(data: torch.Tensor,
+                 buckets: torch.Tensor) -> Tuple[int, int, int]:
+    """Validate the table and the index vector; returns the batch, the
+    table's rows and the CUDA device's index (-1 for CPU tensors)."""
+    shape = data.shape
+    if (len(shape) != 2 or shape[1] != ROW or shape[0] < 2
+            or data.dtype is not torch.int32 or not data.is_contiguous()):
         raise ValueError(
             f"data: expected contiguous (n_buckets + 1, {ROW}) torch.int32, "
-            f"got {tuple(data.shape)} {data.dtype}")
-    if (buckets.dim() != 1 or buckets.dtype != torch.int32
+            f"got {tuple(shape)} {data.dtype}")
+    bshape = buckets.shape
+    if (len(bshape) != 1 or buckets.dtype is not torch.int32
             or not buckets.is_contiguous()):
         raise ValueError(f"buckets: expected contiguous (B,) torch.int32, "
-                         f"got {tuple(buckets.shape)} {buckets.dtype}")
-    if buckets.device != data.device:
+                         f"got {tuple(bshape)} {buckets.dtype}")
+    if data.is_cuda:
+        index = data.get_device()
+        same = buckets.get_device() == index and buckets.is_cuda
+    else:
+        index = -1
+        same = buckets.device == data.device
+    if not same:
         raise ValueError(f"buckets are on {buckets.device}, data on "
                          f"{data.device}")
-    if buckets.shape[0] == 0:
+    if index < 0 and data.device.type != "cpu":
+        raise ValueError(f"no table kernel for device {data.device}")
+    if not bshape[0]:
         raise ValueError("empty batch")
-    return buckets.shape[0]
+    return bshape[0], shape[0], index
 
 
-def _launch(name: str, data, buckets, other, b: int) -> None:
-    device = data.device
-    if device.type != "cuda":
-        raise ValueError(f"no table kernel for device {device}")
-    for t in (data, other):
-        if t.data_ptr() % 16:
-            raise ValueError("table kernels need 16-byte aligned tensors")
-    err = getattr(LIBRARY.load(), name)(
-        data.data_ptr(), buckets.data_ptr(), other.data_ptr(),
-        data.shape[0], b, device.index,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+def _launch(entry: int, data, buckets, other, b: int, n_rows: int,
+            index: int) -> None:
+    """Launch C entry ``entry`` (0 gather, 1 scatter) on PyTorch's current
+    stream of device ``index``: ``torch.accelerator.current_stream`` follows
+    ``torch.cuda.stream`` and graph capture, as ``torch.cuda.current_stream``
+    does, without building a ``torch.cuda.Stream``."""
+    data_ptr, other_ptr = data.data_ptr(), other.data_ptr()
+    if (data_ptr | other_ptr) & 15:
+        raise ValueError("table kernels need 16-byte aligned tensors")
+    fn = (_entries or _load_entries())[entry]
+    err = fn(data_ptr, buckets.data_ptr(), other_ptr, n_rows, b, index,
+             torch.accelerator.current_stream(index).native_handle)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
 def bucket_gather(data: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
@@ -101,12 +159,11 @@ def bucket_gather(data: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
     tensor launches the kernel (and counts it in
     ``bucket_gather.launches``) or raises.
     """
-    b = _check_table(data, buckets)
-    if data.device.type == "cpu":
+    b, n_rows, index = _check_table(data, buckets)
+    if index < 0:
         return plain_bucket_gather(data, buckets)
-    out = torch.empty((b, BUCKET, WIDTH), dtype=torch.int32,
-                      device=data.device)
-    _launch("tpu2048_bucket_gather", data, buckets, out, b)
+    out = data.new_empty(b, BUCKET, WIDTH)
+    _launch(0, data, buckets, out, b, n_rows, index)
     bucket_gather.launches += 1
     return out
 
@@ -122,16 +179,18 @@ def bucket_scatter_(data: torch.Tensor, buckets: torch.Tensor,
     :func:`plain_bucket_scatter_`; a CUDA tensor launches the kernel (and
     counts it in ``bucket_scatter_.launches``) or raises.
     """
-    b = _check_table(data, buckets)
+    b, n_rows, index = _check_table(data, buckets)
     if (rows.shape not in ((b, BUCKET, WIDTH), (b, ROW))
-            or rows.dtype != torch.int32 or not rows.is_contiguous()):
+            or rows.dtype is not torch.int32 or not rows.is_contiguous()):
         raise ValueError(f"rows: expected contiguous ({b}, {ROW}) "
                          f"torch.int32, got {tuple(rows.shape)} {rows.dtype}")
-    if rows.device != data.device:
+    same = (rows.get_device() == index if index >= 0
+            else rows.device == data.device)
+    if not same:
         raise ValueError(f"rows are on {rows.device}, data on {data.device}")
-    if data.device.type == "cpu":
+    if index < 0:
         return plain_bucket_scatter_(data, buckets, rows)
-    _launch("tpu2048_bucket_scatter", data, buckets, rows, b)
+    _launch(1, data, buckets, rows, b, n_rows, index)
     bucket_scatter_.launches += 1
     return data
 
