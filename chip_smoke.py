@@ -8,18 +8,21 @@ the CUDA toolkit::
 Every phase is fatal on failure; without a card, or outside the repository,
 it exits non-zero and prints no result. ``python3 chip_smoke.py
 --table-timing ROOT`` runs only phase 9 on the table kernels of the checkout
-at ``ROOT`` (for example an unpacked parent commit), so that two versions
-can be timed in one run on one card.
+at ``ROOT`` (for example an unpacked parent commit), and ``python3
+chip_smoke.py --step-timing ROOT`` only phase 5 on its step kernel and two
+rows of phase 12 on its rollout kernel, so that two versions can be timed in
+one run on one card.
 
-1. The card's name and power limit, and the torch and CUDA versions.
+1. The card's name, power limit and maximum SM clock, the torch and CUDA
+   versions, and the 32-bit integer peak that the bounds use.
 2. Build the kernels from ``tpu2048_torch/csrc`` with nvcc (sm_90a), one
    nvcc for each source, started together; print the seconds and ptxas's
    resource usage.
-3. Hold the kernel against ``plain_env_step`` on the card: B in {512, 1000,
-   65536}, simple and shaped modes, every emit-flag combination, 32-step
-   trajectories fed back into themselves, actions that include -1, bits that
-   include 0, 0x7FFFFFFF, 0x80000000 and 0xFFFFFFFF. Every output must be
-   equal.
+3. Hold the kernel against ``plain_env_step`` on the card: B in {1, 512,
+   1000, 4096, 65536}, simple and shaped modes, every emit-flag combination,
+   32-step trajectories fed back into themselves, actions that include -1,
+   bits that include 0, 0x7FFFFFFF, 0x80000000 and 0xFFFFFFFF; then once on
+   a side stream. Every output must be equal.
 4. The main path: ``tpu2048_torch.cli.main(["eval", "--policy", "model",
    ...])`` in process, 512 games at batch 512, on a seeded full-width
    Q-network (features 2048, hidden 1024, 3 blocks, bf16). The kernel's
@@ -27,10 +30,16 @@ can be timed in one run on one card.
    Q-values of 64 boards on the card against the same weights in float32 on
    the CPU; and a small greedy evaluation on the card against the same one
    on the CPU, on the same bits, which must agree exactly.
-5. Time the step kernel and its plain version with CUDA events at B=512
-   (the main path's shape) and B=65536, and in shaped mode at B=1024 (the
-   tabular path's call), beside the least time the card could take for the
-   same work.
+5. Time the step kernel at B=512 (the main path's shape) and B=65536, and
+   in shaped mode at B=1024 and 4096 (the tabular path's and ``bench
+   --tabular``'s calls): eager (CUDA events over back-to-back calls), device
+   only (replayed from a CUDA graph), the host time of a call (10,000 calls,
+   no synchronise) and one plain call, beside the least time the card could
+   take for the same work; each row's outputs held equal to the plain
+   version's. Then the launch floor: an empty kernel at the step kernel's
+   geometry, launched through the same ctypes path, eager, from a graph and
+   on the host; and at B=512 the split of a call's host time (checks, C
+   entry, stream lookup, allocation, carving of the outputs).
 6. Hold the table kernels (bucket gather, bucket scatter) against their
    plain versions on the card, on the full (2**21 + 1, 128) table filled
    from a seeded generator: B in {1, 5, 33, 1000, 1024, 4096, 65536} (1000
@@ -89,10 +98,12 @@ can be timed in one run on one card.
 
 import concurrent.futures
 import contextlib
+import functools
 import io
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -103,16 +114,24 @@ REPO = Path(__file__).resolve().parent
 SEED = 2048
 EVAL_GAMES = 512
 TRAJECTORY_STEPS = 32
-# H100 SXM (NVIDIA data sheet): HBM rate, and the float32 rate outside the
-# tensor cores, taken as the peak of the kernel's 32-bit integer operations.
+# The step kernel's card matrix: B=1, the eval path's 512, a ragged last
+# block (1000), `bench --tabular`'s 4096 and 65536.
+STEP_SIZES = (1, EVAL_GAMES, 1000, 4096, 65536)
+# H100 SXM (NVIDIA data sheet): the HBM rate. The kernels' operations are
+# 32-bit integer adds, compares, logic and shifts, which compute capability
+# 9.0 issues at 64 results a clock an SM (CUDA C++ Programming Guide,
+# arithmetic instructions' throughput); int_ops_per_s() takes the SM count
+# and the maximum SM clock from the card.
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+INT32_RESULTS_PER_CLOCK_PER_SM = 64
 # 32-bit operations a lane does, counted at source level in
 # csrc/step_kernel.cu: legality of 4 directions (352), the chosen merge
 # (356), game over (82) and the two maxima (126) on every lane; the legal
 # mask of the next board (352) with emit_legal; the random pick (25) where
 # the action is < 0, the spawn (116) where the move is valid and the reset
-# (76) where the episode ends.
+# (76) where the episode ends. The 96 selects that gather a row into
+# slide-left order and write it back are the design's cost, not the
+# function's work, and are not counted.
 OPS_LANE, OPS_LEGAL, OPS_PICK, OPS_SPAWN, OPS_RESET = 916, 352, 25, 116, 76
 # The rollout kernel's own work a lane-step, counted the same way in
 # csrc/step_kernel.cu: the simple reward, bonus and window and episode sums
@@ -136,6 +155,11 @@ TABLE_EPISODES = 3072  # ~1 episode a lane a chunk: 2-3 chunks
 TABLE_SIZES = (1, 5, 33, 1000, 1024, 4096, 65536)
 TABLE_TIMING_SIZES = (TABLE_BATCH, 4096, 65536)
 HOST_CALLS = 10_000  # calls a host-time loop
+# The step kernel's timed calls: (batch, shaped). Greedy eval's B=512 and
+# B=65536 in simple mode with emit_legal; the tabular path's B=1024 and
+# `bench --tabular`'s 4096 in shaped mode with emit_pre_reset.
+STEP_TIMING_CASES = ((EVAL_GAMES, False), (65536, False), (TABLE_BATCH, True),
+                     (4096, True))
 # Card against CPU, narrow trainer: the shaped reward's log2 and pow may
 # round one float32 ulp apart on the two devices, and the TD updates carry
 # that on (the CPU tests hold the port to JAX at the same tolerance).
@@ -147,13 +171,39 @@ def fail(msg):
     sys.exit(1)
 
 
-def card_line():
+def nvidia_smi(query):
+    """The first card's line of ``nvidia-smi --query-gpu=QUERY``."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def card_line():
+    return nvidia_smi("name,power.limit")
+
+
+@functools.lru_cache(maxsize=None)
+def int_ops_per_s():
+    """The card's peak of 32-bit integer operations a second: 64 results a
+    clock an SM, times the SMs, times the maximum SM clock that nvidia-smi
+    reports (1,980 MHz on an H100 SXM: 1.67e13/s)."""
+    import torch
+
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_RESULTS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def source_threads(root):
+    """The step kernel's threads a block, read from its source under
+    ``root``."""
+    source = Path(root) / "tpu2048_torch" / "csrc" / "step_kernel.cu"
+    match = re.search(r"constexpr int kThreads = (\d+);", source.read_text())
+    if not match:
+        fail(f"no kThreads in {source}")
+    return int(match.group(1))
 
 
 def edge_bits(gen, b, device):
@@ -186,8 +236,8 @@ def phase_equal(sk, torch, device):
     """Kernel against plain version on the card; returns max |difference|."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     max_err, checks, done_lanes, random_lanes = 0, 0, 0, 0
-    cases = itertools.product((512, 1000, 65536), (False, True),
-                              (False, True), (False, True))
+    cases = itertools.product(STEP_SIZES, (False, True), (False, True),
+                              (False, True))
     for b, shaped, pre, legal in cases:
         kw = dict(emit_pre_reset=pre, emit_legal=legal)
         boards_k = boards_p = start_boards(gen, b, device)
@@ -214,12 +264,27 @@ def phase_equal(sk, torch, device):
             done_lanes += int(out_k[3].sum())
             random_lanes += int((actions < 0).sum())
             boards_k, boards_p = out_k[0], out_p[0]
+    # On a side stream, fresh inputs: the wrapper launches on PyTorch's
+    # current stream, so the result is ready in stream order.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        actions = torch.randint(-1, 4, (b,), dtype=torch.int32, generator=gen,
+                                device=device)
+        bits = edge_bits(gen, b, device)
+        out_k = sk.fused_env_step(boards_k, actions, bits, fd, **kw)
+        out_p = sk.plain_env_step(boards_p, actions, bits, fd, **kw)
+        side_ok = all(torch.equal(a, c) for a, c in zip(out_k, out_p))
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    if not side_ok:
+        fail(f"step kernel on a side stream at B={b} != plain_env_step")
     if not done_lanes or not random_lanes:
         fail("the trajectories ended no game or had no random-legal lane")
-    print(f"phase 3: kernel == plain_env_step on the card: {checks} outputs, "
-          f"{done_lanes} episode ends, {random_lanes} random-legal lanes, "
-          f"max |diff| {max_err}")
+    print(f"phase 3: kernel == plain_env_step on the card at B in "
+          f"{STEP_SIZES}: {checks} outputs, {done_lanes} episode ends, "
+          f"{random_lanes} random-legal lanes, max |diff| {max_err}; equal on "
+          f"a side stream at B={b}")
     return max_err
 
 
@@ -379,12 +444,14 @@ def graph_ms(torch, fn, n):
     return elapsed_ms(torch, graph.replay, 10) / n
 
 
-def phase_timing(sk, torch, device, b, shaped=False):
-    """The step kernel at batch ``b``: the eval path's call (simple mode,
-    emit_legal, greedy actions) or, ``shaped``, the tabular path's (shaped
-    mode with 5% forced ends, emit_pre_reset, explicit actions). Kernel, its
-    graph-replayed device time, plain version, and the bound from the bytes
-    and operations these inputs need."""
+def phase_timing(sk, torch, device, b, shaped, threads):
+    """The step kernel (``threads`` a block) at batch ``b``: the eval path's
+    call (simple mode, emit_legal, greedy actions) or, ``shaped``, the
+    tabular path's (shaped mode with 5% forced ends, emit_pre_reset,
+    explicit actions). Kernel eager, its graph-replayed device time, its
+    host time a call, the plain version, and the bound from the bytes and
+    operations these inputs need. The kernel's outputs must equal the plain
+    version's."""
     gen = torch.Generator(device=device).manual_seed(SEED + b)
     boards = start_boards(gen, b, device)
     actions = torch.randint(0, 4, (b,), dtype=torch.int32, generator=gen,
@@ -402,6 +469,8 @@ def phase_timing(sk, torch, device, b, shaped=False):
         return sk.plain_env_step(boards, actions, bits, force_done, **kw)
 
     out = kernel()
+    if not all(torch.equal(a, c) for a, c in zip(out, plain())):
+        fail(f"step kernel != plain_env_step in the timed call at B={b}")
     n_rand = int((actions < 0).sum())
     n_moved = int(out[2].sum())
     n_done = int(out[3].sum())
@@ -414,12 +483,14 @@ def phase_timing(sk, torch, device, b, shaped=False):
     n_ops = (b * (OPS_LANE + (0 if shaped else OPS_LEGAL))
              + OPS_PICK * n_rand + OPS_SPAWN * n_moved + OPS_RESET * n_done)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
+    ops_ms = n_ops / int_ops_per_s() * 1e3
     row = {
         "batch": b,
         "mode": "shaped, emit_pre_reset" if shaped else "simple, emit_legal",
+        "threads": threads,
         "ms": elapsed_ms(torch, kernel, 200),
         "graph_ms": graph_ms(torch, kernel, 20),
+        **host_us(torch, {"host_us": kernel}),
         "plain_ms": elapsed_ms(torch, plain, 20),
         "bytes": n_bytes, "ops": n_ops,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -427,6 +498,101 @@ def phase_timing(sk, torch, device, b, shaped=False):
     }
     print("phase 5: " + json.dumps(row))
     return row
+
+
+def phase_launch_floor(sk, torch, b):
+    """The least time a launch takes: an empty kernel at the step kernel's
+    geometry for batch ``b``, through the same ctypes path (the C entry
+    resolved once, the stream from ``torch.accelerator``); eager, from a
+    CUDA graph and on the host. None if the checkout's library has no such
+    entry."""
+    lib = sk.LIBRARY.load()
+    if not hasattr(lib, "tpu2048_noop_kernel"):
+        print("phase 5: launch floor: not in this library")
+        return None
+    entry = lib.tpu2048_noop_kernel
+
+    def launch():
+        err = entry(b, 0, torch.accelerator.current_stream(0).native_handle)
+        if err != 0:
+            fail(f"empty kernel launch failed: CUDA error {err}")
+
+    row = {"kernel": "noop_kernel", "batch": b,
+           "ms": elapsed_ms(torch, launch, 200),
+           "graph_ms": graph_ms(torch, launch, 20),
+           **host_us(torch, {"host_us": launch})}
+    print("phase 5: launch floor " + json.dumps(row))
+    return row
+
+
+def step_host_split(sk, torch, device, b):
+    """Where a step call's host time goes at batch ``b`` (simple mode,
+    emit_legal): the whole call, the input checks, the bare C entry
+    (ctypes and the launch, arguments made beforehand), the stream lookup,
+    the output buffer's allocation and the carving of its views. The rest
+    of the call is the difference."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    boards = start_boards(gen, b, device)
+    actions = torch.randint(0, 4, (b,), dtype=torch.int32, generator=gen,
+                            device=device)
+    bits = torch.randint(-(2**31), 2**31, (8, b), dtype=torch.int32,
+                         generator=gen, device=device)
+    n_bytes, _, offsets = sk.output_layout(b, False, False, True)
+    buf = boards.new_empty(n_bytes)
+    base = buf.data_ptr()
+    entry = sk.LIBRARY.load().tpu2048_step_kernel
+    args = (boards.data_ptr(), actions.data_ptr(), bits.data_ptr(), None,
+            *[None if o is None else base + o for o in offsets], b,
+            device.index, torch.accelerator.current_stream(device.index)
+            .native_handle)
+    split = {"batch": b}
+    split.update(host_us(torch, {
+        "step_us": lambda: sk.fused_env_step(boards, actions, bits,
+                                             emit_legal=True),
+        "check_us": lambda: sk._check_step(boards, actions, bits, None),
+        "c_entry_us": lambda: entry(*args),
+        "accelerator_current_stream_us": (
+            lambda: torch.accelerator.current_stream(0).native_handle),
+        "new_empty_us": lambda: boards.new_empty(n_bytes),
+        "carve_us": lambda: sk.carve_outputs(buf, b, False, False, True),
+    }))
+    print("phase 5: host split " + json.dumps(split))
+    return split
+
+
+def phase_step_timing(sk, torch, device, root):
+    """Phase 5: the step kernel of the checkout at ``root`` at each of
+    STEP_TIMING_CASES, and the launch floor; returns the rows."""
+    threads = source_threads(root)
+    rows = [phase_timing(sk, torch, device, b, shaped, threads)
+            for b, shaped in STEP_TIMING_CASES]
+    phase_launch_floor(sk, torch, EVAL_GAMES)
+    if hasattr(sk, "carve_outputs"):
+        step_host_split(sk, torch, device, EVAL_GAMES)
+    return rows
+
+
+def step_timing_only(torch, root):
+    """Phase 5 alone on the step kernel of the checkout at ``root``, then
+    phase 12's rollout rows at B=65536 (the bench's call) and B=512 with
+    latches (random eval's): the two kernels share one device step
+    function."""
+    root = Path(root).resolve()
+    if not (root / "tpu2048_torch" / "csrc" / "step_kernel.cu").is_file():
+        fail(f"{root} holds no tpu2048_torch package")
+    sys.path.insert(0, str(root))
+    from tpu2048_torch.ops import step_kernel as sk
+
+    print(f"phase 5: step kernel of {root} (tpu2048_torch from "
+          f"{Path(sk.__file__).parent}), {source_threads(root)} threads a "
+          f"block; integer peak {int_ops_per_s():.4g}/s")
+    sk.LIBRARY.load()
+    device = torch.device("cuda", 0)
+    phase_step_timing(sk, torch, device, root)
+    phase_rollout_timing(sk, torch, device, BENCH_BATCH, philox=True,
+                         latch=False)
+    phase_rollout_timing(sk, torch, device, EVAL_GAMES, philox=True,
+                         latch=True)
 
 
 def phase_build(sk, tk):
@@ -1215,7 +1381,7 @@ def phase_rollout_timing(sk, torch, device, b, philox, latch):
     if philox:
         n_ops += OPS_PHILOX * (lane_steps + done)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / ALU_OPS_PER_S * 1e3
+    ops_ms = n_ops / int_ops_per_s() * 1e3
     t0 = time.perf_counter()
     plain()
     torch.cuda.synchronize()
@@ -1242,14 +1408,17 @@ def main():
         fail(f"torch is not installed: {e}")
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    if sys.argv[1:2] == ["--table-timing"]:
+    usage = "usage: chip_smoke.py [--table-timing ROOT | --step-timing ROOT]"
+    timing = {"--table-timing": table_timing_only,
+              "--step-timing": step_timing_only}
+    if sys.argv[1:2] and sys.argv[1] in timing:
         if len(sys.argv) != 3:
-            fail("usage: chip_smoke.py [--table-timing ROOT]")
+            fail(usage)
         print(f"card: {card_line()}")
-        table_timing_only(torch, sys.argv[2])
+        timing[sys.argv[1]](torch, sys.argv[2])
         return
     if sys.argv[1:]:
-        fail("usage: chip_smoke.py [--table-timing ROOT]")
+        fail(usage)
     if not (REPO / "tpu2048_torch" / "csrc" / "step_kernel.cu").is_file():
         fail(f"{REPO} holds no tpu2048_torch package: run from the repository")
     sys.path.insert(0, str(REPO))
@@ -1263,13 +1432,15 @@ def main():
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
+    print(f"phase 1: max SM clock {nvidia_smi('clocks.max.sm')}, "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs: "
+          f"32-bit integer peak {INT32_RESULTS_PER_CLOCK_PER_SM} a clock an "
+          f"SM = {int_ops_per_s():.4g} operations/s")
 
     phase_build(sk, tk)
     max_err = phase_equal(sk, torch, device)
     launches = phase_main_path(sk, torch, device)
-    main_row = phase_timing(sk, torch, device, EVAL_GAMES)
-    phase_timing(sk, torch, device, 65536)
-    phase_timing(sk, torch, device, TABLE_BATCH, shaped=True)
+    main_row = phase_step_timing(sk, torch, device, REPO)[0]
     gather_err, scatter_err = phase_table_equal(tk, torch, device)
     table_launches, _ = phase_tabular(sk, tk, torch, device)
     phase_narrow(sk, tk, torch, device)
@@ -1313,6 +1484,8 @@ def main():
             "launches": launches,
             "max_abs_err": max_err,
             "ms": main_row["ms"],
+            "graph_ms": main_row["graph_ms"],
+            "host_us": main_row["host_us"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],

@@ -24,23 +24,33 @@
 // 32-bit operations in registers (legality of four directions, one merge,
 // game over, the maxima, the pick; the spawn where the move is valid and
 // the reset where the episode ends; ~200 more for Philox). The step kernel
-// moves at most 80 bytes a lane; the rollout kernel 64 bytes a lane a launch
+// moves at most 98 bytes a lane (53 in, with all 32 bytes of bits, and 45
+// out); the rollout kernel 64 bytes a lane a launch
 // with Philox bits (28 in, 36 out), plus 512 a lane with k = 16 rows of bits
 // from memory, so at k = 16 it is bound by operations in both modes
-// (chip_smoke.py computes both bounds from its inputs). At eval batch sizes
-// (512 lanes, 2 blocks on 132 SMs) a launch costs the launch latency plus
-// one thread's chain of dependent operations, k times over in the rollout.
+// (chip_smoke.py computes both bounds from its inputs). At the paths' batch
+// sizes (512-4,096 lanes, 2-32 blocks on 132 SMs) a launch costs the launch
+// latency plus one thread's chain of dependent operations, k times over in
+// the rollout: hence one round of loads, and no divergent merge.
 //
-// Design: one thread per lane, 256 threads a block, ceil(B / 256) blocks;
-// the ragged last block is masked, so any B works (the TPU kernels needed
-// B % block == 0). Boards are cell-major (16, B) int8: row i holds cell i of
-// every lane, so neighbouring threads read and write neighbouring bytes.
-// The 16 cells live in int32 registers (every index below is a compile-time
-// constant after unrolling). Only the chosen direction is merged; legality
-// of all four comes from the hole/pair test, which equals "the merge changes
-// the row". A bit row is read (or, with Philox, half of them computed) only
-// by the lanes that need it: row 0 where the action is < 0, rows 2-3 where
-// the move is valid, rows 4-7 where the episode ends.
+// Design: one thread per lane, kThreads threads a block, ceil(B / kThreads)
+// blocks; the ragged last block is masked, so any B works (the TPU kernels
+// needed B % block == 0). Boards are cell-major (16, B) int8: row i holds
+// cell i of every lane, so neighbouring threads read and write neighbouring
+// bytes. The 16 cells live in int32 registers, and every index into them is
+// a compile-time constant after unrolling (a runtime index would put the
+// array in local memory). Legality of all four directions comes from the
+// hole/pair test, which equals "the merge changes the row". Only the chosen
+// direction is merged, and the same code runs for every direction, so a
+// warp whose lanes chose different directions does not diverge: each row is
+// gathered into slide-left order by three selects a cell on the direction
+// (cell()), merged by the left merge, and written back by three selects a
+// cell on the inverse order (slot()). The step kernel issues all of its
+// loads at the top, the board, the action, force_done and all eight bit
+// rows, so that they travel in one round; the rollout reads a bit row only
+// where a lane needs it: row 0 where the action is < 0, rows 2-3 where the
+// move is valid, rows 4-7 where the episode ends (with Philox, half of them
+// computed only there).
 //
 // Bits: 8 uint32 rows a step in the TPU kernel's order (pallas_step.py:393):
 // action-pick, unused, spawn-pos, spawn-val, reset-p1, reset-p2, reset-v1,
@@ -56,7 +66,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 
 // Board cell at position k of row r when sliding in direction d
 // (0 = left, 1 = up, 2 = right, 3 = down), counted from the wall the row
@@ -66,6 +76,22 @@ __host__ __device__ constexpr int cell(int d, int r, int k) {
        : d == 1 ? 4 * k + r
        : d == 2 ? 4 * r + 3 - k
                 : 4 * (3 - k) + r;
+}
+
+// The inverse of cell(): the position 4 * r + k of board cell i in the
+// slide-left order of direction d.
+__host__ __device__ constexpr int slot(int d, int i) {
+  return d == 0 ? i
+       : d == 1 ? 4 * (i % 4) + i / 4
+       : d == 2 ? 4 * (i / 4) + 3 - i % 4
+                : 4 * (i % 4) + 3 - i / 4;
+}
+
+// The one of v0..v3 that direction d in [0, 4), known only at run time,
+// picks: three selects, no indexing.
+__device__ __forceinline__ int by_dir(int d, int v0, int v1, int v2,
+                                      int v3) {
+  return d == 0 ? v0 : d == 1 ? v1 : d == 2 ? v2 : v3;
 }
 
 // One comparator of the stable zeros-right sorting network.
@@ -85,30 +111,40 @@ __device__ __forceinline__ void compact(int& x0, int& x1, int& x2, int& x3) {
   cswap(x0, x1);
 }
 
-// Slide and merge the four rows of direction D in place; returns the merge
-// score (a cell made by a merge does not merge again).
-template <int D>
-__device__ __forceinline__ int merge_dir(int c[16]) {
+// Slide and merge the four rows of direction d in [0, 4) in place; returns
+// the merge score (a cell made by a merge does not merge again). Every lane
+// runs the same instructions whatever its d.
+__device__ __forceinline__ int merge_dir(int c[16], int d) {
+  int y[16];
   int score = 0;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    int x0 = c[cell(D, r, 0)], x1 = c[cell(D, r, 1)];
-    int x2 = c[cell(D, r, 2)], x3 = c[cell(D, r, 3)];
-    compact(x0, x1, x2, x3);
-    const bool m01 = x0 == x1 && x0 > 0;
-    const bool m12 = x1 == x2 && x1 > 0 && !m01;
-    const bool m23 = x2 == x3 && x2 > 0 && !m12;
-    score += (m01 ? 1 << (x0 + 1) : 0) + (m12 ? 1 << (x1 + 1) : 0) +
-             (m23 ? 1 << (x2 + 1) : 0);
-    int y0 = x0 + (m01 ? 1 : 0);
-    int y1 = m01 ? 0 : x1 + (m12 ? 1 : 0);
-    int y2 = m12 ? 0 : x2 + (m23 ? 1 : 0);
-    int y3 = m23 ? 0 : x3;
+    int x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x[k] = by_dir(d, c[cell(0, r, k)], c[cell(1, r, k)], c[cell(2, r, k)],
+                    c[cell(3, r, k)]);
+    }
+    compact(x[0], x[1], x[2], x[3]);
+    const bool m01 = x[0] == x[1] && x[0] > 0;
+    const bool m12 = x[1] == x[2] && x[1] > 0 && !m01;
+    const bool m23 = x[2] == x[3] && x[2] > 0 && !m12;
+    score += (m01 ? 1 << (x[0] + 1) : 0) + (m12 ? 1 << (x[1] + 1) : 0) +
+             (m23 ? 1 << (x[2] + 1) : 0);
+    int y0 = x[0] + (m01 ? 1 : 0);
+    int y1 = m01 ? 0 : x[1] + (m12 ? 1 : 0);
+    int y2 = m12 ? 0 : x[2] + (m23 ? 1 : 0);
+    int y3 = m23 ? 0 : x[3];
     compact(y0, y1, y2, y3);
-    c[cell(D, r, 0)] = y0;
-    c[cell(D, r, 1)] = y1;
-    c[cell(D, r, 2)] = y2;
-    c[cell(D, r, 3)] = y3;
+    y[4 * r] = y0;
+    y[4 * r + 1] = y1;
+    y[4 * r + 2] = y2;
+    y[4 * r + 3] = y3;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    c[i] = by_dir(d, y[slot(0, i)], y[slot(1, i)], y[slot(2, i)],
+                  y[slot(3, i)]);
   }
   return score;
 }
@@ -175,6 +211,20 @@ struct RowBits {
   int lane;
   __device__ __forceinline__ uint32_t operator()(int r) const {
     return rows[r * B + lane];
+  }
+};
+
+// One step's bit rows, all eight loaded at once into registers (the step
+// kernel's source: every call site names its row by a constant).
+struct LoadedBits {
+  uint32_t row[8];
+  __device__ __forceinline__ LoadedBits(const uint32_t* rows, size_t B,
+                                        int lane) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) row[r] = rows[r * B + lane];
+  }
+  __device__ __forceinline__ uint32_t operator()(int r) const {
+    return row[r];
   }
 };
 
@@ -250,12 +300,9 @@ __device__ __forceinline__ StepResult env_step(int c[16], int action,
   s.action = action;
   s.score = 0;
   s.moved = false;
-  switch (action) {
-    case 0: s.score = merge_dir<0>(nc); s.moved = legal[0]; break;
-    case 1: s.score = merge_dir<1>(nc); s.moved = legal[1]; break;
-    case 2: s.score = merge_dir<2>(nc); s.moved = legal[2]; break;
-    case 3: s.score = merge_dir<3>(nc); s.moved = legal[3]; break;
-    default: break;
+  if (action >= 0 && action < 4) {
+    s.score = merge_dir(nc, action);
+    s.moved = by_dir(action, legal[0], legal[1], legal[2], legal[3]);
   }
 
   if (s.moved) {
@@ -341,14 +388,17 @@ step_kernel(const int8_t* __restrict__ boards,
   if (lane >= batch) return;
   const size_t B = static_cast<size_t>(batch);
 
+  // Every load in one round, before any arithmetic.
   int c[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) c[i] = boards[i * B + lane];
-  RowBits rows{bits, B, lane};
-  const StepResult s = env_step(
-      c, actions[lane], force_done != nullptr,
-      [&](int) { return force_done[lane] != 0; }, rows, out_pre_reset, B,
-      lane);
+  const int action = actions[lane];
+  const bool forced = force_done != nullptr && force_done[lane] != 0;
+  LoadedBits rows(bits, B, lane);
+  const StepResult s =
+      env_step(c, action, force_done != nullptr,
+               [forced](int) { return forced; }, rows, out_pre_reset, B,
+               lane);
 
 #pragma unroll
   for (int i = 0; i < 16; ++i) out_boards[i * B + lane] = c[i];
@@ -524,6 +574,20 @@ void launch_rollout(const RolloutArgs& a, int blocks, cudaStream_t stream) {
   }
 }
 
+// An empty kernel at the step kernel's geometry: the least time any launch
+// of it takes, for reading the step kernel's time against.
+__global__ void __launch_bounds__(kThreads) noop_kernel() {}
+
+int blocks_for(int batch) { return (batch + kThreads - 1) / kThreads; }
+
+// Makes `device` current, calling cudaSetDevice only when it is not.
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return err;
+}
+
 }  // namespace
 
 // Launches one step on `stream` (a cudaStream_t) of device `device`.
@@ -536,10 +600,10 @@ extern "C" int tpu2048_step_kernel(
     void* out_valid, void* out_done, void* out_max, void* out_second,
     void* out_game_over, void* out_pre_reset, void* out_legal, int batch,
     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  step_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  step_kernel<<<blocks_for(batch), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(boards),
       static_cast<const int32_t*>(actions),
       static_cast<const uint32_t*>(bits),
@@ -569,7 +633,7 @@ extern "C" int tpu2048_rollout_kernel(
     void* out_acnt, int k, int terminal_bonus, int stall_limit,
     int reset_shaping, unsigned long long seed, unsigned long long step,
     int batch, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   RolloutArgs a;
   a.boards = static_cast<const int8_t*>(boards);
@@ -604,7 +668,7 @@ extern "C" int tpu2048_rollout_kernel(
   a.seed = seed;
   a.step = step;
   a.batch = batch;
-  const int blocks = (batch + kThreads - 1) / kThreads;
+  const int blocks = blocks_for(batch);
   const auto st = static_cast<cudaStream_t>(stream);
   const bool shaped = consec_action != nullptr;
   const bool latch = latched != nullptr;
@@ -617,5 +681,15 @@ extern "C" int tpu2048_rollout_kernel(
   } else {
     launch_rollout<false, false>(a, blocks, st);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches noop_kernel over `batch` lanes on `stream` of device `device`,
+// by the step kernel's path. Returns the cudaError_t of the launch.
+extern "C" int tpu2048_noop_kernel(int batch, int device, void* stream) {
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  noop_kernel<<<blocks_for(batch), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

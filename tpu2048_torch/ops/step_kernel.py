@@ -27,6 +27,9 @@ package, into ``build/`` beside the package, and loaded with ``ctypes``
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
+from typing import Tuple
 
 import torch
 
@@ -261,14 +264,27 @@ def plain_env_rollout(boards, score, steps, episode_return, k_steps,
     return out
 
 
-def _check(name, t, shape, dtype, device):
-    if t.shape != shape or t.dtype != dtype:
+def _device_index(boards, kind):
+    """The CUDA device's index of ``boards``, or -1 for a CPU tensor; raises
+    for any other device."""
+    if boards.is_cuda:
+        return boards.get_device()
+    if boards.device.type != "cpu":
+        raise ValueError(f"no {kind} kernel for device {boards.device}")
+    return -1
+
+
+def _check(name, t, shape, dtype, boards, index):
+    """Raise unless ``t`` has ``shape`` and ``dtype``, lies on ``boards``'
+    device (CUDA index ``index``, -1 for the CPU) and is contiguous."""
+    if t.shape != shape or t.dtype is not dtype:
         raise ValueError(
             f"{name}: expected {tuple(shape)} {dtype}, got {tuple(t.shape)} "
             f"{t.dtype}"
         )
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, boards on {device}")
+    if (t.get_device() != index or not t.is_cuda if index >= 0
+            else t.device != boards.device):
+        raise ValueError(f"{name} is on {t.device}, boards on {boards.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -283,13 +299,83 @@ def _declare(lib: ctypes.CDLL) -> None:
                    + [ctypes.c_uint64] * 2
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.tpu2048_noop_kernel
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("step_kernel.cu", _declare)
+# The step kernel's C entry, resolved once when the library loads.
+_step_entry = None
+
+
+def _load_step_entry():
+    global _step_entry
+    _step_entry = LIBRARY.load().tpu2048_step_kernel
+    return _step_entry
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=64)
+def output_layout(b: int, shaped: bool, emit_pre_reset: bool,
+                  emit_legal: bool) -> Tuple[int, tuple, tuple]:
+    """Where a step's outputs lie in the one int8 buffer that a launch
+    allocates at batch ``b``: the buffer's bytes; the sizes of the outputs
+    that are asked for, in memory order (the int32 score first, at the
+    buffer's alignment, then max, second, valid, done, [game_over], then the
+    ``(16, B)`` and ``(4, B)`` blocks: boards, [pre_reset], [legal]); and
+    each output's byte offset in the C entry's order (boards, score, valid,
+    done, max, second, game_over, pre_reset, legal), None where it is not
+    asked for."""
+    sizes = (4 * b, b, b, b, b, b * shaped, 16 * b, 16 * b * emit_pre_reset,
+             4 * b * emit_legal)
+    starts = tuple(itertools.accumulate(sizes, initial=0))
+    offsets = tuple(starts[i] if sizes[i] else None
+                    for i in (6, 0, 3, 4, 1, 2, 5, 7, 8))
+    return starts[-1], tuple(n for n in sizes if n), offsets
+
+
+def carve_outputs(buf: torch.Tensor, b: int, shaped: bool,
+                  emit_pre_reset: bool, emit_legal: bool) -> tuple:
+    """Cut a flat int8 buffer of :func:`output_layout`'s bytes into the
+    step's outputs, those asked for, in the order :func:`fused_env_step`
+    returns them (the C entry's order without the absent ones). No two
+    views overlap."""
+    # In memory: score, max, second, valid, done, [game_over], boards,
+    # [pre_reset], [legal].
+    parts = buf.split_with_sizes(
+        output_layout(b, shaped, emit_pre_reset, emit_legal)[1])
+    out = (parts[5 + shaped].view(16, b), parts[0].view(torch.int32),
+           parts[3].view(torch.bool), parts[4].view(torch.bool), parts[1],
+           parts[2])
+    if shaped:
+        out += (parts[5].view(torch.bool),)
+    if emit_pre_reset:
+        out += (parts[6 + shaped].view(16, b),)
+    if emit_legal:
+        out += (parts[-1].view(4, b),)
+    return out
+
+
+def _check_step(boards, actions, rng_bits, force_done):
+    """Validate the step's inputs in one walk over their attributes; returns
+    the batch and the CUDA device's index (-1 for CPU tensors)."""
+    shape = boards.shape
+    if len(shape) != 2 or shape[0] != 16:
+        raise ValueError(f"boards: expected (16, B), got {tuple(shape)}")
+    b = shape[1]
+    if not b:
+        raise ValueError("empty batch")
+    index = _device_index(boards, "step")
+    _check("boards", boards, shape, torch.int8, boards, index)
+    _check("actions", actions, (b,), torch.int32, boards, index)
+    _check("rng_bits", rng_bits, (8, b), torch.int32, boards, index)
+    if force_done is not None:
+        _check("force_done", force_done, (b,), torch.bool, boards, index)
+    return b, index
 
 
 def fused_env_step(boards, actions, rng_bits, force_done=None, *,
@@ -317,59 +403,34 @@ def fused_env_step(boards, actions, rng_bits, force_done=None, *,
       ``(new_boards, score, valid, done, max_exp, second_exp[, game_over]
       [, pre_reset][, legal_next])``: ``(16, B)`` int8, ``(B,)`` int32,
       ``(B,)`` bool, ``(B,)`` bool, ``(B,)`` int8, ``(B,)`` int8
-      [, ``(B,)`` bool][, ``(16, B)`` int8][, ``(4, B)`` int8].
+      [, ``(B,)`` bool][, ``(16, B)`` int8][, ``(4, B)`` int8]. On the card
+      they are views of one allocation (:func:`output_layout`).
 
     A CPU tensor runs :func:`plain_env_step`; a CUDA tensor launches the
-    kernel (and counts it in ``fused_env_step.launches``) or raises.
+    kernel (and counts it in ``fused_env_step.launches``) or raises. The
+    launch goes to PyTorch's current stream of the boards' device:
+    ``torch.accelerator.current_stream`` follows ``torch.cuda.stream`` and
+    graph capture, as ``torch.cuda.current_stream`` does, without building a
+    ``torch.cuda.Stream``.
     """
-    device = boards.device
-    if boards.dim() != 2 or boards.shape[0] != 16:
-        raise ValueError(f"boards: expected (16, B), got {tuple(boards.shape)}")
-    b = boards.shape[1]
-    if b == 0:
-        raise ValueError("empty batch")
-    _check("boards", boards, (16, b), torch.int8, device)
-    _check("actions", actions, (b,), torch.int32, device)
-    _check("rng_bits", rng_bits, (8, b), torch.int32, device)
-    if force_done is not None:
-        _check("force_done", force_done, (b,), torch.bool, device)
-    kwargs = dict(emit_pre_reset=emit_pre_reset, emit_legal=emit_legal)
-    if device.type == "cpu":
-        return plain_env_step(boards, actions, rng_bits, force_done, **kwargs)
-    if device.type != "cuda":
-        raise ValueError(f"no step kernel for device {device}")
-
-    lib = LIBRARY.load()
-
-    def lane(dtype):
-        return torch.empty((b,), dtype=dtype, device=device)
-
-    out_boards = torch.empty((16, b), dtype=torch.int8, device=device)
-    score = lane(torch.int32)
-    valid, done = lane(torch.bool), lane(torch.bool)
-    max_exp, second_exp = lane(torch.int8), lane(torch.int8)
-    game_over = lane(torch.bool) if force_done is not None else None
-    pre_reset = (torch.empty((16, b), dtype=torch.int8, device=device)
-                 if emit_pre_reset else None)
-    legal = (torch.empty((4, b), dtype=torch.int8, device=device)
-             if emit_legal else None)
-
-    err = lib.tpu2048_step_kernel(
-        _ptr(boards), _ptr(actions), _ptr(rng_bits), _ptr(force_done),
-        _ptr(out_boards), _ptr(score), _ptr(valid), _ptr(done),
-        _ptr(max_exp), _ptr(second_exp), _ptr(game_over), _ptr(pre_reset),
-        _ptr(legal), b,
-        device.index, torch.cuda.current_stream(device).cuda_stream,
-    )
+    b, index = _check_step(boards, actions, rng_bits, force_done)
+    if index < 0:
+        return plain_env_step(boards, actions, rng_bits, force_done,
+                              emit_pre_reset=emit_pre_reset,
+                              emit_legal=emit_legal)
+    shaped = force_done is not None
+    n_bytes, _, offsets = output_layout(b, shaped, emit_pre_reset, emit_legal)
+    buf = boards.new_empty(n_bytes)
+    base = buf.data_ptr()
+    err = (_step_entry or _load_step_entry())(
+        boards.data_ptr(), actions.data_ptr(), rng_bits.data_ptr(),
+        None if force_done is None else force_done.data_ptr(),
+        *[None if o is None else base + o for o in offsets], b, index,
+        torch.accelerator.current_stream(index).native_handle)
     if err != 0:
         raise RuntimeError(f"step kernel launch failed: CUDA error {err}")
     fused_env_step.launches += 1
-
-    out = (out_boards, score, valid, done, max_exp, second_exp)
-    for extra in (game_over, pre_reset, legal):
-        if extra is not None:
-            out += (extra,)
-    return out
+    return carve_outputs(buf, b, shaped, emit_pre_reset, emit_legal)
 
 
 fused_env_step.launches = 0
@@ -416,7 +477,6 @@ def fused_env_rollout(boards, score, steps, episode_return, k_steps,
     A CPU tensor runs :func:`plain_env_rollout`; a CUDA tensor launches the
     kernel (and counts it in ``fused_env_rollout.launches``) or raises.
     """
-    device = boards.device
     if boards.dim() != 2 or boards.shape[0] != 16:
         raise ValueError(f"boards: expected (16, B), got {tuple(boards.shape)}")
     b = boards.shape[1]
@@ -424,10 +484,12 @@ def fused_env_rollout(boards, score, steps, episode_return, k_steps,
         raise ValueError("empty batch")
     if k_steps < 1:
         raise ValueError(f"k_steps must be at least 1, got {k_steps}")
-    _check("boards", boards, (16, b), torch.int8, device)
-    _check("score", score, (b,), torch.int32, device)
-    _check("steps", steps, (b,), torch.int32, device)
-    _check("episode_return", episode_return, (b,), torch.float32, device)
+    index = _device_index(boards, "rollout")
+    _check("boards", boards, (16, b), torch.int8, boards, index)
+    _check("score", score, (b,), torch.int32, boards, index)
+    _check("steps", steps, (b,), torch.int32, boards, index)
+    _check("episode_return", episode_return, (b,), torch.float32, boards,
+           index)
     if rng_bits is None:
         if seed is None or step is None:
             raise ValueError("give rng_bits, or seed and step")
@@ -436,25 +498,24 @@ def fused_env_rollout(boards, score, steps, episode_return, k_steps,
     else:
         if seed is not None or step is not None:
             raise ValueError("give rng_bits or seed and step, not both")
-        _check("rng_bits", rng_bits, (8 * k_steps, b), torch.int32, device)
+        _check("rng_bits", rng_bits, (8 * k_steps, b), torch.int32, boards,
+               index)
     if latch_state is not None:
         for name, t, shape, dtype in zip(
                 ("latched", "fscore", "fsteps", "fmax", "acnt"), latch_state,
                 ((b,), (b,), (b,), (b,), (4, b)),
                 (torch.int8, torch.int32, torch.int32, torch.int8,
                  torch.int32)):
-            _check(name, t, shape, dtype, device)
+            _check(name, t, shape, dtype, boards, index)
     if stall_state is not None:
         for name, t in zip(("consec_action", "consec_count"), stall_state):
-            _check(name, t, (b,), torch.int32, device)
+            _check(name, t, (b,), torch.int32, boards, index)
     kwargs = dict(seed=seed, step=step, terminal_bonus=terminal_bonus,
                   stall_limit=stall_limit, reset_shaping=reset_shaping)
-    if device.type == "cpu":
+    if index < 0:
         return plain_env_rollout(boards, score, steps, episode_return,
                                  k_steps, rng_bits, latch_state, stall_state,
                                  **kwargs)
-    if device.type != "cuda":
-        raise ValueError(f"no rollout kernel for device {device}")
 
     lib = LIBRARY.load()
 
@@ -474,8 +535,8 @@ def fused_env_rollout(boards, score, steps, episode_return, k_steps,
         _ptr(rng_bits), *map(_ptr, stall_in), *map(_ptr, latch_in),
         *map(_ptr, out), *map(_ptr, stall_out), *map(_ptr, latch_out),
         k_steps, int(terminal_bonus), stall_limit, int(reset_shaping),
-        seed or 0, step or 0, b, device.index,
-        torch.cuda.current_stream(device).cuda_stream,
+        seed or 0, step or 0, b, index,
+        torch.cuda.current_stream(boards.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
