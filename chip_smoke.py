@@ -9,9 +9,9 @@ Every phase is fatal on failure; without a card, or outside the repository,
 it exits non-zero and prints no result. ``python3 chip_smoke.py
 --table-timing ROOT`` runs only phase 9 on the table kernels of the checkout
 at ``ROOT`` (for example an unpacked parent commit), and ``python3
-chip_smoke.py --step-timing ROOT`` only phase 5 on its step kernel and two
-rows of phase 12 on its rollout kernel, so that two versions can be timed in
-one run on one card.
+chip_smoke.py --step-timing ROOT`` only phase 5 on its step kernel and
+phase 12's rows and host split on its rollout kernel, so that two versions
+can be timed in one run on one card.
 
 1. The card's name, power limit and maximum SM clock, the torch and CUDA
    versions, and the 32-bit integer peak that the bounds use.
@@ -20,9 +20,10 @@ one run on one card.
    resource usage.
 3. Hold the kernel against ``plain_env_step`` on the card: B in {1, 512,
    1000, 4096, 65536}, simple and shaped modes, every emit-flag combination,
-   32-step trajectories fed back into themselves, actions that include -1,
-   bits that include 0, 0x7FFFFFFF, 0x80000000 and 0xFFFFFFFF; then once on
-   a side stream. Every output must be equal.
+   32-step trajectories fed back into themselves, actions that include -1
+   and the out-of-range 4, 7 and 100, bits that include 0, 0x7FFFFFFF,
+   0x80000000 and 0xFFFFFFFF; then once on a side stream. Every output must
+   be equal.
 4. The main path: ``tpu2048_torch.cli.main(["eval", "--policy", "model",
    ...])`` in process, 512 games at batch 512, on a seeded full-width
    Q-network (features 2048, hidden 1024, 3 blocks, bf16). The kernel's
@@ -68,14 +69,17 @@ one run on one card.
    (10,000 calls, no synchronise) of the wrapper and of the PyTorch call,
    and at 1024 its split: the C entry alone, the stream lookup, the
    output's allocation.
-10. Hold the rollout kernel against ``plain_env_rollout`` on the card: B in
-    {1, 512, 1000, 65536}, k in {1, 16}, simple with and without the
+10. Hold the rollout kernel, in both layouts (four threads a lane and one),
+    against ``plain_env_rollout`` on the card: B in {1, 512, 1000, 4096,
+    65536} and the layout threshold's neighbours (threshold - 1, threshold,
+    threshold + 1), k in {1, 16}, simple with and without the
     terminal bonus and shaped (stall limit 3) with and without
     ``reset_shaping``, each with and without the eval latches; mid-game
     lanes, a fifth of them latched, dead boards (plain, with a 2048, with
     two 1024s), the edge bit patterns; two windows fed back. Every output
-    must be equal, the float32 return bit for bit. Then Philox mode against
-    external mode fed ``philox_rows`` and the plain version, at k=16 over
+    must be equal, the float32 return bit for bit. Then Philox mode, in
+    both layouts and through the wrapper, against external mode fed
+    ``philox_rows`` and the plain version, at k=16 over
     two launches, for each argument set that phase 11's calls make (bench:
     B=65536, bonus on, no latches; random eval: 512 games simple and shaped
     and 65536 simple, with latches; each at its seed, from the step after
@@ -91,8 +95,13 @@ one run on one card.
     (batch 4096, capacity 2**24, 1 + 4 chunks of 256 steps) with the step,
     gather and scatter launches it must make.
 12. Time the rollout kernel (k=16) at B=65536 with Philox and with external
-    bits, and with latches at B=512 and 65536: eager, device only, one plain
-    call, and the bound from the work these inputs need.
+    bits, and with latches at B=512, 4096, 16384, 20480, 24576, 32768 and
+    65536, in both layouts: eager, device only, the host time of the
+    wrapper's call (10,000 calls, no synchronise) in the layout it picks,
+    one plain call, and the bound from the work these inputs need; each
+    layout's outputs held equal to the plain call's. Then at B=512 with
+    latches the split of a call's host time (checks, C entry, stream
+    lookup, allocation, carving).
 13. One JSON line describing the four kernels, then the result line.
 """
 
@@ -143,7 +152,18 @@ OPS_WINDOW, OPS_LATCH, OPS_STALL, OPS_PHILOX = 20, 20, 10, 104
 # the JAX CLI's 512 games and at 65536; the bench's 65536 lanes, 256 steps.
 # The card matrix adds B=1 and a ragged last block (1000).
 ROLLOUT_K, BENCH_BATCH, BIG_EVAL = 16, 65536, 65536
-ROLLOUT_SIZES = (1, EVAL_GAMES, 1000, BENCH_BATCH)
+ROLLOUT_SIZES = (1, EVAL_GAMES, 1000, 4096, BENCH_BATCH)
+# Phase 12's rows: (batch, Philox, latches). The bench's call, the same with
+# bits from memory, and random eval's at 512, 4096, 16384, 20480, 24576,
+# 32768 and 65536 games; the layouts' crossover is read from the latched
+# rows.
+ROLLOUT_TIMING_CASES = (
+    (BENCH_BATCH, True, False), (BENCH_BATCH, False, False),
+    (EVAL_GAMES, True, True), (4096, True, True), (16384, True, True),
+    (20480, True, True), (24576, True, True), (32768, True, True),
+    (BIG_EVAL, True, True))
+# Actions outside [-1, 4) that phase 3 mixes in: the step leaves the board.
+OUT_OF_RANGE_ACTIONS = (4, 7, 100)
 STALL_LIMIT = 3  # small, so that stall cutoffs happen in the card matrix
 # bf16 on the card against float32 on the CPU: bf16 keeps 8 bits, so each
 # layer's inputs, weights and outputs round by up to 2**-9; over five layers
@@ -221,6 +241,19 @@ def edge_bits(gen, b, device):
     return torch.where(use, edge[pick], bits).contiguous()
 
 
+def step_actions(gen, b, device):
+    """(b,) int32 actions in [-1, 4), ~5% of them out of range (4, 7, 100)."""
+    import torch
+
+    actions = torch.randint(-1, 4, (b,), dtype=torch.int32, generator=gen,
+                            device=device)
+    out = torch.tensor(OUT_OF_RANGE_ACTIONS, dtype=torch.int32, device=device)
+    pick = torch.randint(0, len(OUT_OF_RANGE_ACTIONS), (b,), generator=gen,
+                         device=device)
+    use = torch.rand(b, generator=gen, device=device) < 0.05
+    return torch.where(use, out[pick], actions)
+
+
 def start_boards(gen, b, device):
     """(16, b) int8: sparse boards, and a quarter of full ones."""
     import torch
@@ -235,15 +268,14 @@ def start_boards(gen, b, device):
 def phase_equal(sk, torch, device):
     """Kernel against plain version on the card; returns max |difference|."""
     gen = torch.Generator(device=device).manual_seed(SEED)
-    max_err, checks, done_lanes, random_lanes = 0, 0, 0, 0
+    max_err, checks, done_lanes, random_lanes, out_lanes = 0, 0, 0, 0, 0
     cases = itertools.product(STEP_SIZES, (False, True), (False, True),
                               (False, True))
     for b, shaped, pre, legal in cases:
         kw = dict(emit_pre_reset=pre, emit_legal=legal)
         boards_k = boards_p = start_boards(gen, b, device)
         for _ in range(TRAJECTORY_STEPS):
-            actions = torch.randint(-1, 4, (b,), dtype=torch.int32,
-                                    generator=gen, device=device)
+            actions = step_actions(gen, b, device)
             bits = edge_bits(gen, b, device)
             fd = (torch.rand(b, generator=gen, device=device) < 0.05
                   if shaped else None)
@@ -263,14 +295,14 @@ def phase_equal(sk, torch, device):
                      f"legal={legal}: max |diff| {max_err}")
             done_lanes += int(out_k[3].sum())
             random_lanes += int((actions < 0).sum())
+            out_lanes += int((actions >= 4).sum())
             boards_k, boards_p = out_k[0], out_p[0]
     # On a side stream, fresh inputs: the wrapper launches on PyTorch's
     # current stream, so the result is ready in stream order.
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        actions = torch.randint(-1, 4, (b,), dtype=torch.int32, generator=gen,
-                                device=device)
+        actions = step_actions(gen, b, device)
         bits = edge_bits(gen, b, device)
         out_k = sk.fused_env_step(boards_k, actions, bits, fd, **kw)
         out_p = sk.plain_env_step(boards_p, actions, bits, fd, **kw)
@@ -279,11 +311,13 @@ def phase_equal(sk, torch, device):
     torch.cuda.synchronize()
     if not side_ok:
         fail(f"step kernel on a side stream at B={b} != plain_env_step")
-    if not done_lanes or not random_lanes:
-        fail("the trajectories ended no game or had no random-legal lane")
+    if not done_lanes or not random_lanes or not out_lanes:
+        fail("the trajectories ended no game or had no random-legal or "
+             "out-of-range lane")
     print(f"phase 3: kernel == plain_env_step on the card at B in "
           f"{STEP_SIZES}: {checks} outputs, {done_lanes} episode ends, "
-          f"{random_lanes} random-legal lanes, max |diff| {max_err}; equal on "
+          f"{random_lanes} random-legal lanes, {out_lanes} lanes with an "
+          f"action in {OUT_OF_RANGE_ACTIONS}, max |diff| {max_err}; equal on "
           f"a side stream at B={b}")
     return max_err
 
@@ -574,9 +608,9 @@ def phase_step_timing(sk, torch, device, root):
 
 def step_timing_only(torch, root):
     """Phase 5 alone on the step kernel of the checkout at ``root``, then
-    phase 12's rollout rows at B=65536 (the bench's call) and B=512 with
-    latches (random eval's): the two kernels share one device step
-    function."""
+    phase 12's Philox rollout rows, the bench's call (B=65536) and random
+    eval's (with latches, B from 512 to 65536) in each layout the checkout
+    has, and the rollout's host split: the kernels share device helpers."""
     root = Path(root).resolve()
     if not (root / "tpu2048_torch" / "csrc" / "step_kernel.cu").is_file():
         fail(f"{root} holds no tpu2048_torch package")
@@ -589,10 +623,8 @@ def step_timing_only(torch, root):
     sk.LIBRARY.load()
     device = torch.device("cuda", 0)
     phase_step_timing(sk, torch, device, root)
-    phase_rollout_timing(sk, torch, device, BENCH_BATCH, philox=True,
-                         latch=False)
-    phase_rollout_timing(sk, torch, device, EVAL_GAMES, philox=True,
-                         latch=True)
+    phase_rollout_timings(sk, torch, device,
+                          [c for c in ROLLOUT_TIMING_CASES if c[1]])
 
 
 def phase_build(sk, tk):
@@ -1093,47 +1125,82 @@ def rollout_diff(torch, got, want, what):
     return err
 
 
+def rollout_layouts(sk, b):
+    """(threads a lane, whether the wrapper picks it) of each rollout layout
+    of the checkout at batch ``b``, the wrapper's first. A checkout without
+    ``rollout_geometry`` has one layout, one thread a lane."""
+    if not hasattr(sk, "rollout_geometry"):
+        return [(1, True)]
+    picked = sk.rollout_geometry(b)[0]
+    return [(picked, True)] + [(n, False) for n in (1, sk.QUAD_THREADS)
+                               if n != picked]
+
+
+def rollout_call(sk, device, lane_threads, picked, *args, **kw):
+    """A function that launches the rollout on ``args`` through the wrapper
+    (``picked``) or at ``lane_threads`` threads a lane."""
+    if picked:
+        return lambda: sk.fused_env_rollout(*args, **kw)
+    b = args[0].shape[1]
+    return lambda: sk.launch_rollout(lane_threads, b, device.index, *args,
+                                     **kw)
+
+
+def layout_name(lane_threads):
+    return "quad" if lane_threads > 1 else "thread"
+
+
 def phase_rollout_equal(sk, torch, device):
-    """The rollout kernel against plain_env_rollout on the card, external
-    bits, two windows each fed back: B in ROLLOUT_SIZES, k in {1, 16}, simple
-    with and without the bonus and shaped with and without reset_shaping,
-    each with and without latches. Then Philox mode against external rows
-    from philox_rows and the plain version, over two launches whose step
-    counter turns over its high word. Returns max |difference|."""
+    """Both layouts of the rollout kernel against plain_env_rollout on the
+    card, external bits, two windows each fed back: B in ROLLOUT_SIZES and
+    the layout threshold's neighbours, k in {1, 16}, simple with and
+    without the bonus and shaped with and without reset_shaping, each with
+    and without latches. Then Philox mode, both layouts and the wrapper,
+    against external rows from philox_rows and the plain version, over two
+    launches whose step counter turns over its high word. Returns max
+    |difference|."""
     gen = torch.Generator(device=device).manual_seed(SEED + 10)
     modes = [(bonus, latch, False, False) for bonus in (False, True)
              for latch in (False, True)]
     modes += [(True, latch, True, reset) for reset in (False, True)
               for latch in (False, True)]
-    max_err, compared, dones, windows = 0, 0, 0, 0
-    for b, k in itertools.product(ROLLOUT_SIZES, (1, ROLLOUT_K)):
+    edge = sk.QUAD_BATCH
+    sizes = sorted(set(ROLLOUT_SIZES) | {edge - 1, edge, edge + 1})
+    max_err, compared, dones = 0, 0, 0
+    windows = dict.fromkeys((1, sk.QUAD_THREADS), 0)
+    for b, k in itertools.product(sizes, (1, ROLLOUT_K)):
         for bonus, latch, shaped, reset in modes:
             kw = dict(terminal_bonus=bonus, stall_limit=STALL_LIMIT,
                       reset_shaping=reset)
             lanes, latch_state, stall_state = rollout_state(
                 torch, gen, b, device, latch, shaped)
-            what = (f"B={b} k={k} bonus={bonus} latch={latch} "
-                    f"shaped={shaped} reset_shaping={reset}")
             for _ in range(2):
                 bits = torch.cat([edge_bits(gen, b, device)
                                   for _ in range(k)])
-                got = sk.fused_env_rollout(*lanes, k, bits, latch_state,
-                                           stall_state, **kw)
-                want = sk.plain_env_rollout(*lanes, k, bits, latch_state,
-                                            stall_state, **kw)
-                max_err = max(max_err, rollout_diff(torch, got, want, what))
-                compared += len(spread(got))
-                dones += int(got[5].sum())
-                windows += 1
-                lanes = got[:4]
-                latch_state = got[6] if latch else None
-                stall_state = got[-1] if shaped else None
+                args = (*lanes, k, bits, latch_state, stall_state)
+                want = sk.plain_env_rollout(*args, **kw)
+                for lane_threads in windows:
+                    what = (f"B={b} k={k} bonus={bonus} latch={latch} "
+                            f"shaped={shaped} reset_shaping={reset} "
+                            f"layout={layout_name(lane_threads)}")
+                    got = sk.launch_rollout(lane_threads, b, device.index,
+                                            *args, **kw)
+                    max_err = max(max_err,
+                                  rollout_diff(torch, got, want, what))
+                    compared += len(spread(got))
+                    windows[lane_threads] += 1
+                dones += int(want[5].sum())
+                lanes = want[:4]
+                latch_state = want[6] if latch else None
+                stall_state = want[-1] if shaped else None
     torch.cuda.synchronize()
     if not dones:
         fail("the rollout matrix ended no episode")
+    per_layout = ", ".join(f"{n} windows in the {layout_name(t)} layout"
+                           for t, n in windows.items())
     print(f"phase 10: rollout kernel == plain_env_rollout on the card, "
-          f"external bits: {windows} windows, {compared} outputs, {dones} "
-          f"episode ends, max |diff| {max_err}")
+          f"external bits, B in {tuple(sizes)}: {per_layout}, {compared} "
+          f"outputs, {dones} episode ends, max |diff| {max_err}")
 
     cases = philox_cases()
     for label, b, config, latch, seed, step0 in cases:
@@ -1143,24 +1210,29 @@ def phase_rollout_equal(sk, torch, device):
         lanes, latch_state, stall_state = rollout_state(
             torch, gen, b, device, latch, config.shaped)
         for step in (step0, step0 + ROLLOUT_K):
-            what = f"Philox, {label}, B={b} step={step}"
-            got = sk.fused_env_rollout(*lanes, ROLLOUT_K, None, latch_state,
-                                       stall_state, seed=seed, step=step,
-                                       **kw)
+            args = (*lanes, ROLLOUT_K, None, latch_state, stall_state)
+            src = dict(seed=seed, step=step)
+            want = sk.plain_env_rollout(*args, **src, **kw)
             rows = sk.philox_rows(seed, step, ROLLOUT_K, b, device)
             ext = sk.fused_env_rollout(*lanes, ROLLOUT_K, rows, latch_state,
                                        stall_state, **kw)
-            want = sk.plain_env_rollout(*lanes, ROLLOUT_K, None, latch_state,
-                                        stall_state, seed=seed, step=step,
-                                        **kw)
-            max_err = max(max_err, rollout_diff(torch, got, ext, what),
+            got = sk.fused_env_rollout(*args, **src, **kw)
+            what = f"Philox, {label}, B={b} step={step}"
+            max_err = max(max_err, rollout_diff(torch, ext, want, what),
                           rollout_diff(torch, got, want, what))
-            lanes = got[:4]
-            latch_state = got[6] if latch else None
-            stall_state = got[-1] if config.shaped else None
+            for lane_threads in windows:
+                layout = sk.launch_rollout(lane_threads, b, device.index,
+                                           *args, **src, **kw)
+                max_err = max(max_err, rollout_diff(
+                    torch, layout, want,
+                    f"{what} layout={layout_name(lane_threads)}"))
+            lanes = want[:4]
+            latch_state = want[6] if latch else None
+            stall_state = want[-1] if config.shaped else None
     torch.cuda.synchronize()
-    print(f"phase 10: Philox mode == external mode fed philox_rows == plain "
-          f"version at k={ROLLOUT_K}, two launches each: "
+    print(f"phase 10: Philox mode (wrapper and both layouts) == external "
+          f"mode fed philox_rows == plain version at k={ROLLOUT_K}, two "
+          f"launches each: "
           f"{'; '.join(f'{c[0]} (B={c[1]})' for c in cases)}: max |diff| "
           f"{max_err}")
     return max_err
@@ -1349,8 +1421,11 @@ def rollout_work(sk, lanes, k, bits):
 
 def phase_rollout_timing(sk, torch, device, b, philox, latch):
     """One rollout window of ROLLOUT_K steps at batch ``b`` (simple, bonus
-    on): eager and graph-replayed kernel time, one plain call, and the bound
-    from the bytes and operations this window needs."""
+    on), in each layout of the checkout: eager and graph-replayed kernel
+    time, one plain call, the bound from the bytes and operations this
+    window needs, and in the layout the wrapper picks the host time of its
+    call. Each layout's outputs must equal the plain call's. Returns the
+    rows, the wrapper's first."""
     gen = torch.Generator(device=device).manual_seed(SEED + 20 + b)
     lanes, latch_state, _ = rollout_state(torch, gen, b, device, latch,
                                           False)
@@ -1358,13 +1433,7 @@ def phase_rollout_timing(sk, torch, device, b, philox, latch):
     k, seed, step = ROLLOUT_K, SEED, 0
     rows = sk.philox_rows(seed, step, k, b, device)
     src = dict(seed=seed, step=step) if philox else {}
-    bits = None if philox else rows
-
-    def kernel():
-        return sk.fused_env_rollout(*lanes, k, bits, latch_state, **src)
-
-    def plain():
-        return sk.plain_env_rollout(*lanes, k, bits, latch_state, **src)
+    args = (*lanes, k, None if philox else rows, latch_state)
 
     moved, done = rollout_work(sk, lanes, k, rows)
     lane_steps = b * k
@@ -1383,22 +1452,90 @@ def phase_rollout_timing(sk, torch, device, b, philox, latch):
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / int_ops_per_s() * 1e3
     t0 = time.perf_counter()
-    plain()
+    want = sk.plain_env_rollout(*args, **src)
     torch.cuda.synchronize()
-    row = {
-        "kernel": "rollout_kernel", "batch": b, "k": k,
-        "bits": "philox" if philox else "external", "latch": latch,
-        "ms": elapsed_ms(torch, kernel, 100),
-        "graph_ms": graph_ms(torch, kernel, 10),
-        "plain_ms": 1e3 * (time.perf_counter() - t0),
-        "moved_lane_steps": moved, "done_lane_steps": done,
-        "bytes": n_bytes, "ops": n_ops,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-    }
-    row["graph_env_steps_per_s"] = lane_steps / (row["graph_ms"] / 1e3)
-    print("phase 12: " + json.dumps(row))
-    return row
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    out = []
+    for lane_threads, picked in rollout_layouts(sk, b):
+        kernel = rollout_call(sk, device, lane_threads, picked, *args, **src)
+        rollout_diff(torch, kernel(), want,
+                     f"the timed call at B={b} layout "
+                     f"{layout_name(lane_threads)}")
+        row = {
+            "kernel": "rollout_kernel", "batch": b, "k": k,
+            "bits": "philox" if philox else "external", "latch": latch,
+            "layout": layout_name(lane_threads),
+            "lane_threads": lane_threads, "picked": picked,
+            "ms": elapsed_ms(torch, kernel, 100),
+            "graph_ms": graph_ms(torch, kernel, 10),
+            **(host_us(torch, {"host_us": kernel}) if picked else {}),
+            "plain_ms": plain_ms,
+            "moved_lane_steps": moved, "done_lane_steps": done,
+            "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        row["graph_env_steps_per_s"] = lane_steps / (row["graph_ms"] / 1e3)
+        print("phase 12: " + json.dumps(row))
+        out.append(row)
+    return out
+
+
+def rollout_host_split(sk, torch, device, b):
+    """Where a rollout call's host time goes at batch ``b`` (random eval's
+    call: Philox, latches): the whole call, and the parts of its launch
+    path that the checkout has. With the one-allocation path: the input
+    checks, the bare C entry (ctypes and the launch, arguments made
+    beforehand), the stream lookup, the output buffer's allocation and the
+    carving of its views. Before it: the library lookup, torch.cuda's
+    stream lookup and the 11 separate outputs."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    lanes, latch_state, _ = rollout_state(torch, gen, b, device, True, False)
+    src = dict(seed=SEED, step=0)
+    args = (*lanes, ROLLOUT_K, None, latch_state)
+    fns = {"rollout_us": lambda: sk.fused_env_rollout(*args, **src)}
+    if hasattr(sk, "launch_rollout"):
+        n_bytes, *_, offsets = sk.rollout_output_layout(b, True, False)
+        buf = lanes[0].new_empty(n_bytes)
+        base = buf.data_ptr()
+        entry = sk.LIBRARY.load().tpu2048_rollout_kernel
+        ptrs = [t.data_ptr() for t in lanes] + [None, None, None] + [
+            t.data_ptr() for t in latch_state]
+        c_args = (*ptrs, *[None if o is None else base + o for o in offsets],
+                  ROLLOUT_K, True, 100, False, SEED, 0, b,
+                  sk.rollout_geometry(b)[0], device.index,
+                  torch.accelerator.current_stream(device.index)
+                  .native_handle)
+        fns.update({
+            "check_us": lambda: sk._check_rollout(*args, None, SEED, 0),
+            "c_entry_us": lambda: entry(*c_args),
+            "accelerator_current_stream_us": (
+                lambda: torch.accelerator.current_stream(0).native_handle),
+            "new_empty_us": lambda: lanes[0].new_empty(n_bytes),
+            "carve_us": lambda: sk.carve_rollout_outputs(buf, b, True,
+                                                         False),
+        })
+    else:
+        outs = [*lanes, lanes[1], lanes[1], *latch_state]
+        fns.update({
+            "library_load_us": sk.LIBRARY.load,
+            "cuda_current_stream_us": (
+                lambda: torch.cuda.current_stream(device).cuda_stream),
+            "empty_like_x11_us": (
+                lambda: [torch.empty_like(t) for t in outs]),
+        })
+    split = {"batch": b, **host_us(torch, fns)}
+    print("phase 12: host split " + json.dumps(split))
+    return split
+
+
+def phase_rollout_timings(sk, torch, device, cases):
+    """Phase 12 at each (batch, Philox, latches) of ``cases``, then the
+    host split at random eval's call; returns the rows of the first case."""
+    rows = [phase_rollout_timing(sk, torch, device, b, philox, latch)
+            for b, philox, latch in cases]
+    rollout_host_split(sk, torch, device, EVAL_GAMES)
+    return rows[0]
 
 
 def main():
@@ -1454,13 +1591,8 @@ def main():
     torch.cuda.synchronize()
     rollout_err = phase_rollout_equal(sk, torch, device)
     rollout_launches = phase_rollout_path(sk, tk, torch)
-    rollout_row = phase_rollout_timing(sk, torch, device, BENCH_BATCH,
-                                       philox=True, latch=False)
-    phase_rollout_timing(sk, torch, device, BENCH_BATCH, philox=False,
-                         latch=False)
-    phase_rollout_timing(sk, torch, device, EVAL_GAMES, philox=True,
-                         latch=True)
-    phase_rollout_timing(sk, torch, device, BIG_EVAL, philox=True, latch=True)
+    rollout_row = phase_rollout_timings(sk, torch, device,
+                                        ROLLOUT_TIMING_CASES)[0]
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -1504,6 +1636,8 @@ def main():
             "launches": rollout_launches,
             "max_abs_err": rollout_err,
             "ms": rollout_row["ms"],
+            "graph_ms": rollout_row["graph_ms"],
+            "host_us": rollout_row["host_us"],
             "plain_ms": rollout_row["plain_ms"],
             "bound_ms": rollout_row["bound_ms"],
             "bound_by": rollout_row["bound_by"],

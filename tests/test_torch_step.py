@@ -172,3 +172,29 @@ def test_fused_env_step_rejects_bad_inputs(bad):
         actions = actions.to("meta")
     with pytest.raises(ValueError):
         sk.fused_env_step(boards, actions, bits)
+
+
+@pytest.mark.parametrize("shaped", [False, True])
+def test_out_of_range_actions_match_lax_step(shaped):
+    """Actions 4, 7 and 100 (outside [-1, 4)) leave the board as it was
+    with a zero score and moved=False in both packages: JAX's one-hot
+    selects nothing, and so does the port's (the kernel skips the merge).
+    Every output, on the same bits, beside lanes with in-range actions."""
+    boards = jps.to_cell_major(jnp.asarray(make_boards(12)))
+    actions = make_actions(13)
+    actions[::3] = np.array([4, 7, 100])[np.arange(len(actions[::3])) % 3]
+    bits = make_bits(14)
+    force_done = np.random.default_rng(15).random(B) < 0.1
+    want = jax_lax_step(boards, jnp.asarray(actions), jnp.asarray(bits),
+                        jnp.asarray(force_done), shaped)
+    got = sk.plain_env_step(
+        to_torch(boards), to_torch(actions), to_torch(bits),
+        to_torch(force_done) if shaped else None,
+        emit_pre_reset=True, emit_legal=True,
+    )
+    assert_same(got, want)
+    out = actions >= 4
+    assert not got[2].numpy()[out].any() and not got[1].numpy()[out].any()
+    pre_reset = got[-2].numpy()
+    np.testing.assert_array_equal(pre_reset[:, out],
+                                  np.asarray(boards)[:, out])

@@ -5,7 +5,9 @@ per lane in one launch; the port of :mod:`tpu2048.ops.pallas_step`'s
 :func:`fused_env_step` and :func:`fused_env_rollout` launch the CUDA kernels
 in ``csrc/step_kernel.cu`` on a CUDA tensor and run :func:`plain_env_step`
 and :func:`plain_env_rollout`, the same functions in plain PyTorch, on a CPU
-tensor. There is no fallback from the card to the plain versions.
+tensor. There is no fallback from the card to the plain versions. The
+rollout kernel has two layouts, four threads a lane below ``QUAD_BATCH``
+lanes and one thread a lane from there up; :func:`rollout_geometry` picks.
 
 Layout: boards are cell-major ``(16, B)`` int8 (cell ``r*4+c`` is row
 ``r*4+c``). Randomness comes from the caller as ``(8, B)`` int32 rows that
@@ -297,7 +299,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.tpu2048_rollout_kernel
     fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4
                    + [ctypes.c_uint64] * 2
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.tpu2048_noop_kernel
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -305,8 +307,9 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("step_kernel.cu", _declare)
-# The step kernel's C entry, resolved once when the library loads.
+# The kernels' C entries, resolved once when the library loads.
 _step_entry = None
+_rollout_entry = None
 
 
 def _load_step_entry():
@@ -315,8 +318,29 @@ def _load_step_entry():
     return _step_entry
 
 
+def _load_rollout_entry():
+    global _rollout_entry
+    _rollout_entry = LIBRARY.load().tpu2048_rollout_kernel
+    return _rollout_entry
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+# Mirrors of csrc/step_kernel.cu's launch constants: threads a block
+# (kThreads); the rollout runs QUAD_THREADS threads a lane below
+# QUAD_BATCH lanes (kQuadThreads, kQuadBatch), one thread a lane from it up.
+THREADS = 128
+QUAD_THREADS = 4
+QUAD_BATCH = 21120
+
+
+def rollout_geometry(batch: int) -> Tuple[int, int]:
+    """The rollout kernel's launch at ``batch`` lanes: threads a lane (the
+    layout the wrapper passes the C entry) and blocks of THREADS threads."""
+    lane_threads = QUAD_THREADS if batch < QUAD_BATCH else 1
+    return lane_threads, -(-batch * lane_threads // THREADS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -436,6 +460,122 @@ def fused_env_step(boards, actions, rng_bits, force_done=None, *,
 fused_env_step.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def rollout_output_layout(b: int, latch: bool, shaped: bool
+                          ) -> Tuple[int, tuple, tuple, tuple]:
+    """Where a rollout's outputs lie in the one int8 buffer that a launch
+    allocates at batch ``b``: the buffer's bytes; the 32-bit outputs that
+    are asked for, first, at the buffer's alignment, by their sizes in
+    words (score, steps, return, reward_sum, done_count, [consec_action,
+    consec_count], [fscore, fsteps, acnt]); then the int8 ones by their
+    sizes in bytes (boards, [latched, fmax]); and each output's byte offset
+    in the C entry's order (boards, score, steps, return, reward_sum,
+    done_count, consec_action, consec_count, latched, fscore, fsteps, fmax,
+    acnt), None where it is not asked for."""
+    words = (b,) * (5 + 2 * shaped) + (b, b, 4 * b) * latch
+    cells = (16 * b,) + (b, b) * latch
+    starts = tuple(itertools.accumulate((4 * n for n in words), initial=0))
+    n32 = starts[-1]
+    j = 5 + 2 * shaped  # the first latch output, fscore
+    stall = (starts[5], starts[6]) if shaped else (None, None)
+    latches = ((n32 + 16 * b, starts[j], starts[j + 1], n32 + 17 * b,
+                starts[j + 2]) if latch else (None,) * 5)
+    offsets = (n32, *starts[:5], *stall, *latches)
+    return n32 + sum(cells), words, cells, offsets
+
+
+def carve_rollout_outputs(buf: torch.Tensor, b: int, latch: bool,
+                          shaped: bool) -> tuple:
+    """Cut a flat int8 buffer of :func:`rollout_output_layout`'s bytes into
+    the rollout's outputs, in the order and types :func:`fused_env_rollout`
+    returns them. No two views overlap. The 32-bit outputs come from one
+    split of one int32 view (each view made from Python costs the host
+    more than the split's)."""
+    _, words, cells, _ = rollout_output_layout(b, latch, shaped)
+    n32 = 4 * sum(words)
+    w = buf[:n32].view(torch.int32).split_with_sizes(words)
+    c = buf[n32:].split_with_sizes(cells)
+    out = (c[0].view(16, b), w[0], w[1], w[2].view(torch.float32), w[3],
+           w[4])
+    if latch:
+        j = 5 + 2 * shaped
+        out += ((c[1], w[j], w[j + 1], c[2], w[j + 2].view(4, b)),)
+    if shaped:
+        out += ((w[5], w[6]),)
+    return out
+
+
+_LATCH = (("latched", torch.int8), ("fscore", torch.int32),
+          ("fsteps", torch.int32), ("fmax", torch.int8), ("acnt", torch.int32))
+
+
+def _check_rollout(boards, score, steps, episode_return, k_steps, rng_bits,
+                   latch_state, stall_state, seed, step):
+    """Validate the rollout's inputs in one walk over their attributes;
+    returns the batch and the CUDA device's index (-1 for CPU tensors)."""
+    shape = boards.shape
+    if len(shape) != 2 or shape[0] != 16:
+        raise ValueError(f"boards: expected (16, B), got {tuple(shape)}")
+    b = shape[1]
+    if not b:
+        raise ValueError("empty batch")
+    if k_steps < 1:
+        raise ValueError(f"k_steps must be at least 1, got {k_steps}")
+    index = _device_index(boards, "rollout")
+    _check("boards", boards, shape, torch.int8, boards, index)
+    _check("score", score, (b,), torch.int32, boards, index)
+    _check("steps", steps, (b,), torch.int32, boards, index)
+    _check("episode_return", episode_return, (b,), torch.float32, boards,
+           index)
+    if rng_bits is None:
+        if seed is None or step is None:
+            raise ValueError("give rng_bits, or seed and step")
+        if not (0 <= seed < 2**64 and 0 <= step and step + k_steps <= 2**64):
+            raise ValueError(f"seed {seed} or step {step} out of range")
+    else:
+        if seed is not None or step is not None:
+            raise ValueError("give rng_bits or seed and step, not both")
+        _check("rng_bits", rng_bits, (8 * k_steps, b), torch.int32, boards,
+               index)
+    if latch_state is not None:
+        for (name, dtype), t in zip(_LATCH, latch_state):
+            _check(name, t, (4, b) if name == "acnt" else (b,), dtype, boards,
+                   index)
+    if stall_state is not None:
+        for name, t in zip(("consec_action", "consec_count"), stall_state):
+            _check(name, t, (b,), torch.int32, boards, index)
+    return b, index
+
+
+def launch_rollout(lane_threads, b, index, boards, score, steps,
+                   episode_return, k_steps, rng_bits=None, latch_state=None,
+                   stall_state=None, *, seed=None, step=None,
+                   terminal_bonus: bool = True, stall_limit: int = 100,
+                   reset_shaping: bool = False):
+    """One rollout launch at ``lane_threads`` threads a lane (1 or
+    QUAD_THREADS) on inputs that :func:`_check_rollout` passed at batch
+    ``b`` on CUDA device ``index``: :func:`fused_env_rollout`'s launch, with
+    the layout given instead of :func:`rollout_geometry`'s, so that both
+    layouts can be held and timed at any batch. Counts the launch."""
+    latch, shaped = latch_state is not None, stall_state is not None
+    n_bytes, _, _, offsets = rollout_output_layout(b, latch, shaped)
+    buf = boards.new_empty(n_bytes)
+    base = buf.data_ptr()
+    err = (_rollout_entry or _load_rollout_entry())(
+        boards.data_ptr(), score.data_ptr(), steps.data_ptr(),
+        episode_return.data_ptr(), _ptr(rng_bits),
+        *(map(_ptr, stall_state) if shaped else (None,) * 2),
+        *(map(_ptr, latch_state) if latch else (None,) * 5),
+        *[None if o is None else base + o for o in offsets], k_steps,
+        terminal_bonus, stall_limit, reset_shaping, seed or 0, step or 0, b,
+        lane_threads, index,
+        torch.accelerator.current_stream(index).native_handle)
+    if err != 0:
+        raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
+    fused_env_rollout.launches += 1
+    return carve_rollout_outputs(buf, b, latch, shaped)
+
+
 def fused_env_rollout(boards, score, steps, episode_return, k_steps,
                       rng_bits=None, latch_state=None, stall_state=None, *,
                       seed=None, step=None, terminal_bonus: bool = True,
@@ -473,81 +613,25 @@ def fused_env_rollout(boards, score, steps, episode_return, k_steps,
       done_count[, latch_state'][, stall_state'])``; ``reward_sum`` (-10 for
       an invalid move that does not end the episode, else the merge score,
       plus the bonus) and ``done_count`` are ``(B,)`` int32 window totals.
+      On the card they are views of one allocation
+      (:func:`rollout_output_layout`).
 
     A CPU tensor runs :func:`plain_env_rollout`; a CUDA tensor launches the
-    kernel (and counts it in ``fused_env_rollout.launches``) or raises.
+    kernel (and counts it in ``fused_env_rollout.launches``) or raises, at
+    the layout :func:`rollout_geometry` picks from the batch, on PyTorch's
+    current stream of the boards' device.
     """
-    if boards.dim() != 2 or boards.shape[0] != 16:
-        raise ValueError(f"boards: expected (16, B), got {tuple(boards.shape)}")
-    b = boards.shape[1]
-    if b == 0:
-        raise ValueError("empty batch")
-    if k_steps < 1:
-        raise ValueError(f"k_steps must be at least 1, got {k_steps}")
-    index = _device_index(boards, "rollout")
-    _check("boards", boards, (16, b), torch.int8, boards, index)
-    _check("score", score, (b,), torch.int32, boards, index)
-    _check("steps", steps, (b,), torch.int32, boards, index)
-    _check("episode_return", episode_return, (b,), torch.float32, boards,
-           index)
-    if rng_bits is None:
-        if seed is None or step is None:
-            raise ValueError("give rng_bits, or seed and step")
-        if not (0 <= seed < 2**64 and 0 <= step and step + k_steps <= 2**64):
-            raise ValueError(f"seed {seed} or step {step} out of range")
-    else:
-        if seed is not None or step is not None:
-            raise ValueError("give rng_bits or seed and step, not both")
-        _check("rng_bits", rng_bits, (8 * k_steps, b), torch.int32, boards,
-               index)
-    if latch_state is not None:
-        for name, t, shape, dtype in zip(
-                ("latched", "fscore", "fsteps", "fmax", "acnt"), latch_state,
-                ((b,), (b,), (b,), (b,), (4, b)),
-                (torch.int8, torch.int32, torch.int32, torch.int8,
-                 torch.int32)):
-            _check(name, t, shape, dtype, boards, index)
-    if stall_state is not None:
-        for name, t in zip(("consec_action", "consec_count"), stall_state):
-            _check(name, t, (b,), torch.int32, boards, index)
+    b, index = _check_rollout(boards, score, steps, episode_return, k_steps,
+                              rng_bits, latch_state, stall_state, seed, step)
     kwargs = dict(seed=seed, step=step, terminal_bonus=terminal_bonus,
                   stall_limit=stall_limit, reset_shaping=reset_shaping)
     if index < 0:
         return plain_env_rollout(boards, score, steps, episode_return,
                                  k_steps, rng_bits, latch_state, stall_state,
                                  **kwargs)
-
-    lib = LIBRARY.load()
-
-    def like(t):
-        return torch.empty_like(t)
-
-    out = [like(boards), like(score), like(steps), like(episode_return),
-           like(score), like(score)]
-    latch_out = (tuple(like(t) for t in latch_state)
-                 if latch_state is not None else (None,) * 5)
-    stall_out = (tuple(like(t) for t in stall_state)
-                 if stall_state is not None else (None,) * 2)
-    latch_in = latch_state if latch_state is not None else (None,) * 5
-    stall_in = stall_state if stall_state is not None else (None,) * 2
-    err = lib.tpu2048_rollout_kernel(
-        _ptr(boards), _ptr(score), _ptr(steps), _ptr(episode_return),
-        _ptr(rng_bits), *map(_ptr, stall_in), *map(_ptr, latch_in),
-        *map(_ptr, out), *map(_ptr, stall_out), *map(_ptr, latch_out),
-        k_steps, int(terminal_bonus), stall_limit, int(reset_shaping),
-        seed or 0, step or 0, b, index,
-        torch.cuda.current_stream(boards.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
-    fused_env_rollout.launches += 1
-
-    out = tuple(out)
-    if latch_state is not None:
-        out += (latch_out,)
-    if stall_state is not None:
-        out += (stall_out,)
-    return out
+    return launch_rollout(rollout_geometry(b)[0], b, index, boards, score,
+                          steps, episode_return, k_steps, rng_bits,
+                          latch_state, stall_state, **kwargs)
 
 
 fused_env_rollout.launches = 0
