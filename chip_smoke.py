@@ -18,12 +18,12 @@ can be timed in one run on one card.
 2. Build the kernels from ``tpu2048_torch/csrc`` with nvcc (sm_90a), one
    nvcc for each source, started together; print the seconds and ptxas's
    resource usage.
-3. Hold the kernel against ``plain_env_step`` on the card: B in {1, 512,
-   1000, 4096, 65536}, simple and shaped modes, every emit-flag combination,
-   32-step trajectories fed back into themselves, actions that include -1
-   and the out-of-range 4, 7 and 100, bits that include 0, 0x7FFFFFFF,
-   0x80000000 and 0xFFFFFFFF; then once on a side stream. Every output must
-   be equal.
+3. Hold the kernel against ``plain_env_step`` on the card: B in {1, 128,
+   512, 1000, 4096, 65536}, simple and shaped modes, every emit-flag
+   combination, 32-step trajectories fed back into themselves, actions that
+   include -1 and the out-of-range 4, 7 and 100, bits that include 0,
+   0x7FFFFFFF, 0x80000000 and 0xFFFFFFFF; then once on a side stream. Every
+   output must be equal.
 4. The main path: ``tpu2048_torch.cli.main(["eval", "--policy", "model",
    ...])`` in process, 512 games at batch 512, on a seeded full-width
    Q-network (features 2048, hidden 1024, 3 blocks, bf16). The kernel's
@@ -31,9 +31,10 @@ can be timed in one run on one card.
    Q-values of 64 boards on the card against the same weights in float32 on
    the CPU; and a small greedy evaluation on the card against the same one
    on the CPU, on the same bits, which must agree exactly.
-5. Time the step kernel at B=512 (the main path's shape) and B=65536, and
-   in shaped mode at B=1024 and 4096 (the tabular path's and ``bench
-   --tabular``'s calls): eager (CUDA events over back-to-back calls), device
+5. Time the step kernel at B=512 (the greedy eval path's shape) and
+   B=65536, in shaped mode at B=1024 and 4096 (the tabular path's and
+   ``bench --tabular``'s calls), and at B=128 with both emits (``train
+   dqn``'s call): eager (CUDA events over back-to-back calls), device
    only (replayed from a CUDA graph), the host time of a call (10,000 calls,
    no synchronise) and one plain call, beside the least time the card could
    take for the same work; each row's outputs held equal to the plain
@@ -102,7 +103,36 @@ can be timed in one run on one card.
     layout's outputs held equal to the plain call's. Then at B=512 with
     latches the split of a call's host time (checks, C entry, stream
     lookup, allocation, carving).
-13. One JSON line describing the four kernels, then the result line.
+13. The DQN main path: ``tpu2048_torch.cli.main(["train", "dqn", ...])``
+    in process at the ``train dqn`` defaults (full width: features 2048,
+    hidden 1024, 3 blocks, bf16; 128 envs, learner batch 64, the update
+    debt of 100 updates an episode, 16 steps a chunk), with a checkpoint
+    directory; only ``--episodes`` is cut, to at least 3 chunks and 1,000
+    updates. The step kernel's launches must equal the vector steps played
+    (no other kernel), updates + debt must equal 100 x episodes, the loss
+    must be finite. Prints the rows, ms a vector step and updates a step of
+    each chunk, and the peak memory. Then the split of one warm vector step
+    (restored from the run's checkpoint, 8 fixed updates): the host clock,
+    the forward alone, and under torch.profiler the host and device time of
+    the trainer's scopes (actor, env step, replay add, learner) and the
+    kernels by device time. Then ``--resume`` for one more episode from the
+    saved checkpoint, and ``eval --policy model --checkpoint-dir`` on the
+    trained weights (64 games), with their launch counts.
+14. A narrow DQN trainer (features 32, hidden 32, 1 block, float32, TF32
+    off, dropout 0, the head's actions 0.05 apart) on the card against the
+    same trainer on the CPU, on the same bits, draws and weights, half the
+    lanes on endgame boards, 3 chunks of 16 steps with 4 updates a step:
+    the integer state equal (boards, legal masks, the buffer's slots,
+    ``ptr``, ``size``, the dedup caches, the counters, ``tile_hist``, the
+    sums of integer rewards, the LR), the parameters and losses within the
+    stated tolerances.
+15. ``bench --learner`` (full-width updates at batch 64: 200 warm, 200
+    timed) and ``bench --train-loop`` (128 envs, 64 steps a chunk, 1 warm
+    and 8 timed chunks, no updates) through the CLI, with their JSON lines
+    and launch counts, and the learner's bound: the larger of its
+    operations at the bf16 dense peak and its bytes at the HBM rate.
+16. One JSON line describing the four kernels (the step kernel's launches
+    counted over phases 4 and 13), then the result line.
 """
 
 import concurrent.futures
@@ -111,6 +141,7 @@ import functools
 import io
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -122,10 +153,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 2048
 EVAL_GAMES = 512
+DQN_ENVS = 128  # `train dqn`'s default envs: the DQN path's step batch
 TRAJECTORY_STEPS = 32
-# The step kernel's card matrix: B=1, the eval path's 512, a ragged last
-# block (1000), `bench --tabular`'s 4096 and 65536.
-STEP_SIZES = (1, EVAL_GAMES, 1000, 4096, 65536)
+# The step kernel's card matrix: B=1, the DQN path's 128, the eval path's
+# 512, a ragged last block (1000), `bench --tabular`'s 4096 and 65536.
+STEP_SIZES = (1, DQN_ENVS, EVAL_GAMES, 1000, 4096, 65536)
 # H100 SXM (NVIDIA data sheet): the HBM rate. The kernels' operations are
 # 32-bit integer adds, compares, logic and shifts, which compute capability
 # 9.0 issues at 64 results a clock an SM (CUDA C++ Programming Guide,
@@ -175,11 +207,38 @@ TABLE_EPISODES = 3072  # ~1 episode a lane a chunk: 2-3 chunks
 TABLE_SIZES = (1, 5, 33, 1000, 1024, 4096, 65536)
 TABLE_TIMING_SIZES = (TABLE_BATCH, 4096, 65536)
 HOST_CALLS = 10_000  # calls a host-time loop
-# The step kernel's timed calls: (batch, shaped). Greedy eval's B=512 and
+# The step kernel's timed calls: (batch, mode). Greedy eval's B=512 and
 # B=65536 in simple mode with emit_legal; the tabular path's B=1024 and
-# `bench --tabular`'s 4096 in shaped mode with emit_pre_reset.
-STEP_TIMING_CASES = ((EVAL_GAMES, False), (65536, False), (TABLE_BATCH, True),
-                     (4096, True))
+# `bench --tabular`'s 4096 in shaped mode with emit_pre_reset; `train dqn`'s
+# B=128 in simple mode with both.
+STEP_TIMING_CASES = ((EVAL_GAMES, "simple"), (65536, "simple"),
+                     (TABLE_BATCH, "shaped"), (4096, "shaped"),
+                     (DQN_ENVS, "dqn"))
+# What each mode runs: (shaped, emit_pre_reset, emit_legal).
+STEP_MODES = {"simple": (False, False, True), "shaped": (True, True, False),
+              "dqn": (False, True, True)}
+# The DQN slice: the `train dqn` defaults (128 envs, learner batch 64, an
+# update debt of 100 updates an episode drained up to 512 a vector step, 16
+# steps a chunk) at full width; only the episodes are cut, to at least 3
+# chunks and 1,000 updates. The split adds 8 fixed updates to a warm step.
+DQN_EPISODES, DQN_CHUNK = 24, 16
+DQN_SPLIT_UPDATES, DQN_EVAL_GAMES = 8, 64
+DQN_SCOPES = ("actor", "env_step", "replay_add", "learner")  # training/dqn.py
+DQN_ROW_KEYS = {"episodes", "env_steps", "epsilon", "lr", "buffer_size",
+                "train_steps", "mean_return", "mean_score", "mean_length",
+                "best_tile", "loss", "tile_hist", "steps_per_s",
+                "update_debt"}
+# H100 SXM (NVIDIA data sheet): dense bf16 tensor-core peak.
+BF16_FLOPS_PER_S = 989e12
+# Narrow DQN trainer, card against CPU, float32 with TF32 off: the sums of
+# cuDNN and of the CPU differ in order. Adam moves a weight by about lr a
+# step whatever the gradient's size, so a weight whose gradient is at the
+# level of float noise may move the other way on one device. The ATOL
+# carries the check: all weights but a LOOSE_SHARE of them agree within
+# it. The losses are held relative to their own size.
+DQN_NARROW_PARAM_ATOL = 1e-5
+DQN_NARROW_LOOSE_SHARE = 1e-3
+DQN_NARROW_LOSS_RTOL = 1e-4
 # Card against CPU, narrow trainer: the shaped reward's log2 and pow may
 # round one float32 ulp apart on the two devices, and the TD updates carry
 # that on (the CPU tests hold the port to JAX at the same tolerance).
@@ -478,14 +537,16 @@ def graph_ms(torch, fn, n):
     return elapsed_ms(torch, graph.replay, 10) / n
 
 
-def phase_timing(sk, torch, device, b, shaped, threads):
-    """The step kernel (``threads`` a block) at batch ``b``: the eval path's
-    call (simple mode, emit_legal, greedy actions) or, ``shaped``, the
-    tabular path's (shaped mode with 5% forced ends, emit_pre_reset,
-    explicit actions). Kernel eager, its graph-replayed device time, its
-    host time a call, the plain version, and the bound from the bytes and
-    operations these inputs need. The kernel's outputs must equal the plain
+def phase_timing(sk, torch, device, b, mode, threads):
+    """The step kernel (``threads`` a block) at batch ``b`` in ``mode``
+    (``STEP_MODES``): the eval path's call (simple mode, emit_legal, greedy
+    actions), the tabular path's (shaped mode with 5% forced ends,
+    emit_pre_reset, explicit actions) or the DQN path's (simple mode, both
+    emits). Kernel eager, its graph-replayed device time, its host time a
+    call, the plain version, and the bound from the bytes and operations
+    these inputs need. The kernel's outputs must equal the plain
     version's."""
+    shaped, pre, legal = STEP_MODES[mode]
     gen = torch.Generator(device=device).manual_seed(SEED + b)
     boards = start_boards(gen, b, device)
     actions = torch.randint(0, 4, (b,), dtype=torch.int32, generator=gen,
@@ -494,7 +555,7 @@ def phase_timing(sk, torch, device, b, shaped, threads):
                          generator=gen, device=device)
     force_done = (torch.rand(b, generator=gen, device=device) < 0.05
                   if shaped else None)
-    kw = dict(emit_pre_reset=shaped, emit_legal=not shaped)
+    kw = dict(emit_pre_reset=pre, emit_legal=legal)
 
     def kernel():
         return sk.fused_env_step(boards, actions, bits, force_done, **kw)
@@ -511,16 +572,19 @@ def phase_timing(sk, torch, device, b, shaped, threads):
     # Inputs: board, action, [force_done,] and the bit rows a lane needs
     # (row 0 if the action is < 0, rows 2-3 if the move is valid, rows 4-7
     # if the episode ends). Outputs: board, score, valid, done, max, second,
-    # and the legal mask, or the game-over flag and the pre-reset board.
-    lane_bytes = 16 + 4 + 16 + 4 + 4 + (1 + 1 + 16 if shaped else 4)
+    # [the game-over flag,] [the pre-reset board,] [the legal mask].
+    lane_bytes = (16 + 4 + 16 + 4 + 4 + (2 if shaped else 0)
+                  + (16 if pre else 0) + (4 if legal else 0))
     n_bytes = b * lane_bytes + 4 * n_rand + 8 * n_moved + 16 * n_done
-    n_ops = (b * (OPS_LANE + (0 if shaped else OPS_LEGAL))
+    n_ops = (b * (OPS_LANE + (OPS_LEGAL if legal else 0))
              + OPS_PICK * n_rand + OPS_SPAWN * n_moved + OPS_RESET * n_done)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / int_ops_per_s() * 1e3
     row = {
         "batch": b,
-        "mode": "shaped, emit_pre_reset" if shaped else "simple, emit_legal",
+        "mode": {"simple": "simple, emit_legal",
+                 "shaped": "shaped, emit_pre_reset",
+                 "dqn": "simple, emit_pre_reset, emit_legal"}[mode],
         "threads": threads,
         "ms": elapsed_ms(torch, kernel, 200),
         "graph_ms": graph_ms(torch, kernel, 20),
@@ -598,8 +662,8 @@ def phase_step_timing(sk, torch, device, root):
     """Phase 5: the step kernel of the checkout at ``root`` at each of
     STEP_TIMING_CASES, and the launch floor; returns the rows."""
     threads = source_threads(root)
-    rows = [phase_timing(sk, torch, device, b, shaped, threads)
-            for b, shaped in STEP_TIMING_CASES]
+    rows = [phase_timing(sk, torch, device, b, mode, threads)
+            for b, mode in STEP_TIMING_CASES]
     phase_launch_floor(sk, torch, EVAL_GAMES)
     if hasattr(sk, "carve_outputs"):
         step_host_split(sk, torch, device, EVAL_GAMES)
@@ -1538,6 +1602,376 @@ def phase_rollout_timings(sk, torch, device, cases):
     return rows[0]
 
 
+def dqn_forward_flops(features, hidden, blocks):
+    """Multiply-add operations x 2 of one board through the Q-network:
+    each block's four convolutions over the 16 cells of the SAME-padded
+    board (k*k taps each, ``features / 4`` filters), the dense layer and the
+    head."""
+    taps = sum(k * k for k in (1, 2, 3, 4))
+    conv = sum(2 * 16 * taps * (16 if i == 0 else features) * (features // 4)
+               for i in range(blocks))
+    return conv + 2 * 16 * features * hidden + 2 * hidden * 4
+
+
+def learner_bound_ms(n_params, batch, features, hidden, blocks):
+    """The least time of one update on the card: the larger of its
+    operations at the bf16 dense peak (a train forward, a backward of twice
+    its work, and a target forward) and its bytes at the HBM rate (the
+    float32 parameters, target parameters and Adam's two moments read once;
+    the parameters and moments written once)."""
+    ops = 4 * batch * dqn_forward_flops(features, hidden, blocks)
+    bytes_moved = 4 * n_params * 7
+    return (max(ops / BF16_FLOPS_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
+            ops, bytes_moved)
+
+
+def profile_dqn_step(torch, device, ck):
+    """Warm vector steps of the trainer restored from the main path's last
+    checkpoint, at the `train dqn` defaults and ``DQN_SPLIT_UPDATES`` fixed
+    updates a step: the host clock of a step, the forward alone, and one
+    step under torch.profiler split by the trainer's scopes (actor, env
+    step, replay add, learner) on the host and on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu2048_torch.checkpoint.ckpt import CheckpointManager
+    from tpu2048_torch.ops.step_kernel import from_cell_major
+    from tpu2048_torch.training import dqn as dtrain
+
+    config = dtrain.DQNTrainConfig(steps_per_chunk=1,
+                                   updates_per_step=DQN_SPLIT_UPDATES,
+                                   seed=SEED)
+    state = dtrain.init_loop_state(config, device)
+    mgr = CheckpointManager(ck)
+    mgr.restore(mgr.latest_step(), state)
+    for _ in range(3):
+        dtrain.train_chunk(config, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        dtrain.train_chunk(config, state)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 10
+    boards = from_cell_major(state.env_state.boards)
+    model = state.agent.model.eval()
+    with torch.no_grad():
+        forward_ms = elapsed_ms(torch, lambda: model(boards), 20)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):  # the tracer's own start-up
+        dtrain.train_chunk(config, state)
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        dtrain.train_chunk(config, state)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    # Each kernel's time goes to the host op that launched it, and that op
+    # to the scope whose host range holds its start: the scopes' device
+    # times are the kernels they launched, not their spans on the device.
+    events = prof.events()
+    ranges = {scope: [(e.time_range.start, e.time_range.end) for e in events
+                      if e.name == scope and e.device_type == DeviceType.CPU]
+              for scope in DQN_SCOPES}
+    split = {scope: [sum(b - a for a, b in r) / 1e3, 0.0]
+             for scope, r in ranges.items()}
+    by_name = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        t = e.time_range.start
+        for k in e.kernels:
+            total, count = by_name.get(k.name, (0.0, 0))
+            by_name[k.name] = (total + k.duration / 1e3, count + 1)
+        for scope, r in ranges.items():
+            if any(a <= t <= b for a, b in r):
+                split[scope][1] += sum(k.duration for k in e.kernels) / 1e3
+    if not by_name:
+        # No kernel attached to a host op: take the device's kernels from
+        # the averages, leaving out the scopes' and the optimizer's ranges
+        # on the device; the scopes' device times are then not measured.
+        print("phase 13: the trace attaches no kernel to a host op; device "
+              "time by scope: not measured")
+        by_name = {e.key: (e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and e.key not in DQN_SCOPES
+                   and not e.key.startswith("Optimizer.")}
+    device_ms = sum(total for total, _ in by_name.values())
+    n_kernels = sum(count for _, count in by_name.values())
+    print(f"phase 13: split of one warm vector step ({DQN_ENVS} envs, "
+          f"{DQN_SPLIT_UPDATES} updates of batch 64, full width): "
+          f"{step_ms:.3f} ms a step on the host clock (10 steps); the "
+          f"forward alone at batch {DQN_ENVS} {forward_ms:.3f} ms (CUDA "
+          f"events); under the profiler {traced_ms:.3f} ms, "
+          f"{device_ms:.3f} ms of device time in {n_kernels} kernels: the "
+          f"device is busy {100 * device_ms / traced_ms:.1f}% of the step")
+    for scope, (host, dev) in split.items():
+        per = (f"; per update {host / DQN_SPLIT_UPDATES:.3f} ms host, "
+               f"{dev / DQN_SPLIT_UPDATES:.3f} ms device"
+               if scope == "learner" else "")
+        print(f"phase 13:   {scope}: {host:.3f} ms host, "
+              f"{dev:.3f} ms of kernels{per}")
+    for name, (total, count) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:12]:
+        print(f"phase 13:   {total:.4f} ms, {count} calls: {name[:100]}")
+    return split, forward_ms
+
+
+def phase_dqn_path(sk, tk, torch, device):
+    """The DQN main path through the CLI at full width: `train dqn`, then
+    `--resume` and `eval --policy model --checkpoint-dir`. Returns the step
+    kernel's launches in the `train dqn` call."""
+    from tpu2048_torch.cli.main import main as cli_main
+    from tpu2048_torch.metrics.logging import read_jsonl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "train.jsonl")
+        argv = ["train", "dqn", "--episodes", str(DQN_EPISODES),
+                "--checkpoint-dir", ck, "--log", log, "--seed", str(SEED)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, counts, wall = run_path(sk, tk, torch, cli_main, argv)
+        peak = torch.cuda.max_memory_allocated()
+        rows = read_jsonl(log)
+        for row in rows:
+            print("phase 13: row " + json.dumps(row))
+        last = rows[-1] if rows else {}
+        steps = last.get("env_steps", 0) // DQN_ENVS
+        if (len(rows) < 3 or steps != len(rows) * DQN_CHUNK
+                or counts["step"] != steps or counts["rollout"]
+                or counts["gather"] or counts["scatter"]):
+            fail(f"train dqn: {len(rows)} chunks, {steps} vector steps, "
+                 f"launches {counts}")
+        if (last["train_steps"] + last["update_debt"]
+                != 100 * last["episodes"] or last["train_steps"] < 1000
+                or not math.isfinite(last["loss"])
+                or any(set(r) != DQN_ROW_KEYS for r in rows)
+                or sum(last["tile_hist"]) != last["episodes"]):
+            fail(f"train dqn: implausible last row {last}")
+        print(f"phase 13: train dqn, full width, {DQN_ENVS} envs, batch 64, "
+              f"{DQN_EPISODES} episodes: {counts['step']} step-kernel "
+              f"launches = {steps} vector steps, no other kernel; "
+              f"{last['train_steps']} updates + {last['update_debt']} owed "
+              f"= 100 x {last['episodes']} episodes; {wall:.3f} s for the "
+              f"CLI call; peak device memory {peak} bytes")
+        prev_updates = 0
+        for i, row in enumerate(rows):
+            upd = (row["train_steps"] - prev_updates) / DQN_CHUNK
+            prev_updates = row["train_steps"]
+            print(f"phase 13: chunk {i + 1}: "
+                  f"{1e3 * DQN_ENVS / row['steps_per_s']:.3f} ms a vector "
+                  f"step, {upd:.2f} updates a step, {row['steps_per_s']:.0f} "
+                  f"env-steps/s")
+        split, forward_ms = profile_dqn_step(torch, device, ck)
+
+        text, rcounts, rwall = run_path(sk, tk, torch, cli_main, [
+            "train", "dqn", "--episodes", str(last["episodes"] + 1),
+            "--checkpoint-dir", ck, "--resume", "--log", log])
+        resumed = read_jsonl(log)[len(rows):]
+        if (not resumed or resumed[0]["env_steps"]
+                != last["env_steps"] + DQN_ENVS * DQN_CHUNK
+                or rcounts["step"] != DQN_CHUNK * len(resumed)
+                or resumed[-1]["episodes"] <= last["episodes"]):
+            fail(f"train dqn --resume: rows {resumed}, launches {rcounts}")
+        print(f"phase 13: --resume: {len(resumed)} chunk(s) from episode "
+              f"{last['episodes']}, env_steps {resumed[0]['env_steps']}, "
+              f"{rcounts['step']} step-kernel launches; {rwall:.3f} s for "
+              f"the CLI call (the restore of the whole loop state "
+              f"included)")
+
+        text, ecounts, ewall = run_path(sk, tk, torch, cli_main, [
+            "eval", "--policy", "model", "--checkpoint-dir", ck, "--games",
+            str(DQN_EVAL_GAMES), "--eval-batch", str(DQN_EVAL_GAMES)])
+        summary = json.loads(text)
+        if (summary["games"] != DQN_EVAL_GAMES
+                or ecounts["step"] != summary["batch_steps"]
+                or not summary["length_mean"] > 0):
+            fail(f"eval --checkpoint-dir: {summary}, launches {ecounts}")
+        print(f"phase 13: eval --policy model --checkpoint-dir, the trained "
+              f"weights: {summary['games']} games, score mean "
+              f"{summary['score_mean']:.1f}, best tile "
+              f"{summary['best_tile']}, {ecounts['step']} step-kernel "
+              f"launches = {summary['batch_steps']} steps; {ewall:.3f} s "
+              f"for the CLI call")
+    return counts["step"], split, forward_ms
+
+
+def endgame_boards(gen, n):
+    """(n, 4, 4) int8 dense boards with one empty cell; a third hold a 2048
+    and a third two 1024s, so that games end within a few steps."""
+    import torch
+
+    boards = torch.randint(1, 9, (n, 16), dtype=torch.int8, generator=gen)
+    third = n // 3
+    boards[:third, 5] = 11
+    boards[third:2 * third, 0] = 10
+    boards[third:2 * third, 15] = 10
+    boards[torch.arange(n), torch.randint(0, 16, (n,), generator=gen)] = 0
+    return boards.view(n, 4, 4)
+
+
+class HostDraws:
+    """The port's GeneratorDraws on the CPU, its select draws moved to
+    ``device``: the same draws for a trainer on the card and on the CPU."""
+
+    def __init__(self, seed, device):
+        from tpu2048_torch.agents.dqn import GeneratorDraws
+
+        self.source = GeneratorDraws(seed, "cpu")
+        self.device = device
+
+    def select(self, b):
+        return tuple(x.to(self.device) for x in self.source.select(b))
+
+    def indices(self, buffer, batch, alpha):
+        return self.source.indices(buffer, batch, alpha)
+
+
+def phase_dqn_narrow(torch, device):
+    """A narrow DQN trainer on the card and on the CPU, on the same bits,
+    draws and weights: integer state equal, parameters and losses within
+    the stated tolerances."""
+    from tpu2048_torch.agents.dqn import DQNConfig, current_lr
+    from tpu2048_torch.env import fast as tfast
+    from tpu2048_torch.ops.board import legal_moves_mask
+    from tpu2048_torch.ops.step_kernel import from_cell_major, to_cell_major
+    from tpu2048_torch.training import dqn as dtrain
+
+    b, steps, chunks, updates = 256, 16, 3, 4
+    agent = DQNConfig(features=32, hidden=32, num_blocks=1, bf16=False,
+                      dropout=0.0, memory_size=2048)
+    config = dtrain.DQNTrainConfig(agent=agent, num_envs=b, train_batch=32,
+                                   steps_per_chunk=steps,
+                                   updates_per_step=updates, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    bits = [torch.randint(-(2**31), 2**31, (8, b), dtype=torch.int32,
+                          generator=gen) for _ in range(steps * chunks + 1)]
+    endgame = endgame_boards(gen, b - b // 2)
+    weights = None
+    states = []
+    for dev in (device, torch.device("cpu")):
+        st = dtrain.init_loop_state(config, dev)
+        if weights is None:
+            # The head's actions 0.05 apart, as tie_free_narrow_params
+            # makes them: float32 sum order cannot flip a greedy choice.
+            with torch.no_grad():
+                st.agent.model.head.weight.mul_(0.02)
+                st.agent.model.head.bias.copy_(0.05 * torch.arange(4))
+            weights = {k: v.detach().cpu().clone() for k, v in
+                       st.agent.model.state_dict().items()}
+        st.agent.model.load_state_dict(weights)
+        st.agent.target.load_state_dict(weights)
+        replay = tfast.ReplayBits([x.to(dev) for x in bits])
+        st.env_state = tfast.fast_reset(replay, b, dtrain.fast_config(config))
+        # Half the lanes on dense endgame boards, so that episodes end (with
+        # terminal bonuses and LR triggers) within the chunks.
+        late = torch.cat([from_cell_major(st.env_state.boards[:, :b // 2]),
+                          endgame.to(dev)])
+        st.env_state.boards = to_cell_major(late)
+        st.env_state.legal = legal_moves_mask(late)
+        st.bits, st.draws = replay, HostDraws(SEED + 10, dev)
+        for _ in range(chunks):
+            dtrain.train_chunk(config, st)
+        states.append(st)
+    card, cpu = states
+
+    def same(a, c, what):
+        if not torch.equal(a.cpu(), c):
+            fail(f"narrow DQN trainer: {what}, card != CPU")
+
+    for name in ("boards", "legal", "score", "episode_steps",
+                 "episode_return"):
+        same(getattr(card.env_state, name), getattr(cpu.env_state, name),
+             name)
+    for name in ("s", "ns", "saved_count", "last_saved"):
+        same(getattr(card.dedup, name), getattr(cpu.dedup, name),
+             f"dedup {name}")
+    for name in ("boards", "next_boards", "actions", "rewards", "dones",
+                 "priorities", "ptr", "size", "max_priority"):
+        a, c = getattr(card.buffer, name), getattr(cpu.buffer, name)
+        same(a[:agent.memory_size] if a.dim() else a,
+             c[:agent.memory_size] if c.dim() else c, f"buffer {name}")
+    for name in ("best_tile", "tile_hist", "sum_return", "sum_score",
+                 "sum_length", "sum_final_tile"):
+        same(getattr(card, name), getattr(cpu, name), name)
+    for name in dtrain.DQNLoopState.COUNTERS:
+        if getattr(card, name) != getattr(cpu, name):
+            fail(f"narrow DQN trainer: {name}, card != CPU")
+    if (card.agent.train_steps != cpu.agent.train_steps
+            or card.agent.step_counter != cpu.agent.step_counter
+            or current_lr(card.agent) != current_lr(cpu.agent)
+            or card.agent.train_steps != updates * steps * chunks
+            or card.episodes_done < b // 4
+            or not current_lr(card.agent) < agent.learning_rate):
+        fail("narrow DQN trainer: agent counters or LR, card != CPU")
+    diffs = torch.cat([(p.detach().cpu() - q.detach()).abs().flatten()
+                       for p, q in zip(card.agent.model.parameters(),
+                                       cpu.agent.model.parameters())])
+    loose = int((diffs > DQN_NARROW_PARAM_ATOL).sum())
+    loss_err = max(
+        abs(float(getattr(card, k)) - float(getattr(cpu, k)))
+        / max(abs(float(getattr(cpu, k))), 1e-30)
+        for k in ("loss_sum", "last_loss"))
+    if (loose > diffs.numel() * DQN_NARROW_LOOSE_SHARE
+            or loss_err > DQN_NARROW_LOSS_RTOL
+            or not math.isfinite(float(card.loss_sum))):
+        fail(f"narrow DQN trainer: parameters {loose} of {diffs.numel()} "
+             f"beyond {DQN_NARROW_PARAM_ATOL}, max {float(diffs.max()):.3e};"
+             f" loss {loss_err:.3e}")
+    print(f"phase 14: narrow DQN trainer (B={b}, features 32, hidden 32, 1 "
+          f"block, float32, TF32 off; {chunks} chunks of {steps} steps, "
+          f"{updates} updates a step), card == CPU on the integer state "
+          f"({card.episodes_done} episodes, buffer {int(card.buffer.size)}, "
+          f"{card.agent.train_steps} updates, LR {current_lr(card.agent)}); "
+          f"parameters: max |diff| "
+          f"{float(diffs.max()):.3e}, {loose} of {diffs.numel()} beyond "
+          f"{DQN_NARROW_PARAM_ATOL} (at most {DQN_NARROW_LOOSE_SHARE:.1%}); "
+          f"losses within {loss_err:.3e} of |loss| (tolerance "
+          f"{DQN_NARROW_LOSS_RTOL})")
+
+
+def phase_dqn_benches(sk, tk, torch):
+    """`bench --learner` and `bench --train-loop` through the CLI."""
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.cli.main import main as cli_main
+    from tpu2048_torch.models import dqn as tdqn
+
+    full = DQNConfig()  # the reference's widths: 2048, 1024, 3 blocks
+    n_params = tdqn.param_count(tdqn.create_model(full, "meta"))
+
+    text, counts, wall = run_path(sk, tk, torch, cli_main,
+                                  ["bench", "--learner"])
+    learner = json.loads(text.strip().splitlines()[-1])
+    bound, ops, bytes_moved = learner_bound_ms(
+        n_params, 64, full.features, full.hidden, full.num_blocks)
+    if (learner["metric"] != "dqn_updates_per_s_per_chip"
+            or not learner["value"] > 0 or learner["batch"] != 64
+            or learner["features"] != full.features or any(counts.values())
+            or not math.isfinite(learner["loss"])):
+        fail(f"bench --learner: {learner}, launches {counts}")
+    print(f"phase 15: bench --learner: {json.dumps(learner)}; "
+          f"{wall:.3f} s for the CLI call; bound {bound:.4f} ms an update "
+          f"({ops:.4g} operations at {BF16_FLOPS_PER_S:.3g}/s, "
+          f"{bytes_moved:.4g} bytes at {HBM_BYTES_PER_S:.3g}/s): "
+          f"{learner['ms_per_update'] / bound:.2f}x the bound")
+
+    text, counts, wall = run_path(sk, tk, torch, cli_main,
+                                  ["bench", "--train-loop"])
+    loop = json.loads(text.strip().splitlines()[-1])
+    steps = loop["steps_per_chunk"] * loop["chunks"]
+    if (loop["metric"] != "train_loop_env_steps_per_s_per_chip"
+            or not loop["value"] > 0 or loop["envs"] != DQN_ENVS
+            or loop["launches"] != steps
+            or counts["step"] != steps + loop["steps_per_chunk"]
+            or counts["rollout"] or counts["gather"] or counts["scatter"]):
+        fail(f"bench --train-loop: {loop}, launches {counts}")
+    print(f"phase 15: bench --train-loop: {json.dumps(loop)}; "
+          f"{counts['step']} step-kernel launches (warm chunk and timed); "
+          f"{wall:.3f} s for the CLI call")
+    return learner, loop
+
+
 def main():
     try:
         import torch
@@ -1593,6 +2027,9 @@ def main():
     rollout_launches = phase_rollout_path(sk, tk, torch)
     rollout_row = phase_rollout_timings(sk, torch, device,
                                         ROLLOUT_TIMING_CASES)[0]
+    dqn_launches, _, _ = phase_dqn_path(sk, tk, torch, device)
+    phase_dqn_narrow(torch, device)
+    phase_dqn_benches(sk, tk, torch)
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -1613,7 +2050,7 @@ def main():
             "route": "cuda",
             "source": "tpu2048_torch/csrc/step_kernel.cu",
             "replaces": "tpu2048/ops/pallas_step.py:308",
-            "launches": launches,
+            "launches": launches + dqn_launches,
             "max_abs_err": max_err,
             "ms": main_row["ms"],
             "graph_ms": main_row["graph_ms"],

@@ -1,12 +1,14 @@
 """The port's ``bench`` subcommand on the CPU, at a small size: one JSON
 line with the rollout bench's keys (and no ``vs_baseline``, a ratio to a TPU
-target), the tabular bench's line, and the modes not yet ported."""
+target), the tabular, learner and train-loop benches' lines (narrow
+networks), and the mode not yet ported."""
 
 import json
 
 import pytest
 
 from tpu2048_torch import bench
+from tpu2048_torch.agents.dqn import DQNConfig
 from tpu2048_torch.cli.main import main
 
 
@@ -37,8 +39,32 @@ def test_tabular_bench_on_the_cpu(monkeypatch, capsys):
     assert row["ms_per_step"] == pytest.approx(1e3 * row["seconds"] / 16)
 
 
-@pytest.mark.parametrize("flags", [["--learner"], ["--train-loop"],
-                                   ["--scale", "1,2"]])
+NARROW = DQNConfig(features=32, hidden=32, num_blocks=1, bf16=False,
+                   memory_size=4096)
+
+
+def test_learner_bench_on_the_cpu(capsys):
+    row = bench.learner_main(batch=8, updates=5, device="cpu", agent=NARROW)
+    assert json.loads(capsys.readouterr().out) == row
+    assert row["metric"] == "dqn_updates_per_s_per_chip"
+    assert {"value", "unit", "ms_per_update", "batch", "updates", "features",
+            "loss", "seconds", "card"} <= set(row)
+    assert (row["batch"], row["updates"], row["features"]) == (8, 5, 32)
+    assert row["value"] > 0 and row["card"] == "cpu"
+    assert row["ms_per_update"] == pytest.approx(1e3 / row["value"])
+
+
+def test_train_loop_bench_on_the_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(bench, "TRAIN_LOOP_STEPS_PER_CHUNK", 8)
+    row = bench.train_loop_main(envs=8, chunks=2, device="cpu", agent=NARROW)
+    assert json.loads(capsys.readouterr().out) == row
+    assert row["metric"] == "train_loop_env_steps_per_s_per_chip"
+    assert (row["envs"], row["steps_per_chunk"], row["chunks"]) == (8, 8, 2)
+    assert row["value"] > 0 and row["card"] == "cpu"
+    assert row["launches"] == 0  # the plain version runs on a CPU tensor
+
+
+@pytest.mark.parametrize("flags", [["--scale", "1,2"]])
 def test_bench_modes_not_yet_ported(flags, capsys):
     assert main(["bench", "--cpu", *flags]) == 2
     assert "not yet ported" in capsys.readouterr().err

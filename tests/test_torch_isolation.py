@@ -28,7 +28,9 @@ def test_importing_the_port_loads_no_jax_and_no_tpu2048():
         "tpu2048_torch.agents.tabular", "tpu2048_torch.agents.tabular_fast",
         "tpu2048_torch.metrics.logging", "tpu2048_torch.training.tabular",
         "tpu2048_torch.bench", "tpu2048_torch.eval.evaluate",
-        "tpu2048_torch.env.fast",
+        "tpu2048_torch.env.fast", "tpu2048_torch.replay.buffer",
+        "tpu2048_torch.agents.dqn", "tpu2048_torch.training.dqn",
+        "tpu2048_torch.checkpoint.ckpt", "tpu2048_torch.models.dqn",
     } <= set(modules)
     code = (
         "import importlib, sys\n"
@@ -91,7 +93,10 @@ def test_cpu_tensors_run_the_plain_rollout_without_a_launch():
     ["eval", "--policy", "random", "--games", "4", "--eval-batch", "4"],
     ["bench", "--batch", "4", "--steps", "16"],
     ["bench", "--tabular", "--batch", "4"],
-], ids=["eval-random", "bench", "bench-tabular"])
+    ["bench", "--learner", "--updates", "1"],
+    ["bench", "--train-loop", "--envs", "4"],
+], ids=["eval-random", "bench", "bench-tabular", "bench-learner",
+        "bench-train-loop"])
 def test_rollout_entry_points_default_to_cuda(argv, monkeypatch):
     from tpu2048_torch.cli.main import main
 
@@ -116,3 +121,12 @@ def test_train_tabular_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["train", "tabular", "--episodes", "1", "--batch", "4",
               "--capacity-log2", "8"])
+
+
+def test_train_dqn_defaults_to_cuda(monkeypatch):
+    from tpu2048_torch.cli.main import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["train", "dqn", "--episodes", "1", "--envs", "4",
+              "--features", "8", "--hidden", "8", "--blocks", "1"])

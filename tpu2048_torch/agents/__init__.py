@@ -1,1 +1,1 @@
-"""Agents: DQN configuration and the tabular Q-learner."""
+"""Agents: the DQN actor-learner and the tabular Q-learner."""

@@ -7,11 +7,15 @@ steps of ``batch`` lanes as ``steps / rollout_k`` launches of
 :func:`tpu2048_torch.env.fast.fast_rollout`, with the bits drawn by Philox
 inside the kernel. ``tabular_main`` times the tabular training chunk (shaped
 fast env, packed hashed Q-table, the step, gather and scatter kernels).
+``learner_main`` times the DQN learner's updates at full width, and
+``train_loop_main`` the DQN training chunk's actor side (CNN policy, step
+kernel, dedup, replay insert) with no updates.
 
 Each warms up with the same work it then times, and fences the timed run by
 synchronizing the device and reading a result on the host. Each line names
 the card and its power limit (``nvidia-smi``), or ``"cpu"``. Run them as
-``python -m tpu2048_torch bench [--tabular] [--cpu]``.
+``python -m tpu2048_torch bench [--tabular | --learner | --train-loop]
+[--cpu]``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ ROLLOUT_ENV = FastEnvConfig(terminal_bonus=True)
 TABULAR_CAPACITY_LOG2 = 24
 TABULAR_STEPS_PER_CHUNK = 256
 TABULAR_TIMED_CHUNKS = 4
+# The JAX train-loop bench's chunk: 64 steps, no updates.
+TRAIN_LOOP_STEPS_PER_CHUNK = 64
 
 
 def card_name(device: torch.device) -> str:
@@ -138,6 +144,112 @@ def tabular_main(batch: int = 4096, device: Optional[str] = None) -> dict:
         "capacity_log2": capacity_log2,
         "steps_per_chunk": steps_per_chunk,
         "chunks": chunks,
+        "seconds": seconds,
+        "card": card_name(device),
+    }
+    print(json.dumps(row))
+    return row
+
+
+def learner_main(batch: int = 64, updates: int = 200,
+                 device: Optional[str] = None, agent=None) -> dict:
+    """DQN learner updates/s: ``updates`` warm updates, then ``updates``
+    timed ones, each a sample from a 4096-slot buffer holding 1,024 random
+    transitions and one :func:`tpu2048_torch.agents.dqn.train_step` (target
+    forward, train forward and backward, Adam) of the network of ``agent``
+    (default: the reference's, full width, bf16). Returns the printed
+    row."""
+    from tpu2048_torch.agents import dqn as dqnlib
+    from tpu2048_torch.replay import buffer as replaylib
+
+    device = resolve_device(device)
+    acfg = agent or dqnlib.DQNConfig(memory_size=4096)
+    state = dqnlib.create_train_state(acfg, device, 0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    n_fill = 1024
+
+    def randint(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device=device)
+
+    buf = replaylib.replay_init(acfg.memory_size, device)
+    replaylib.replay_add(
+        buf, randint(12, (n_fill, 4, 4)), randint(4, (n_fill,)),
+        torch.rand(n_fill, generator=gen, device=device),
+        torch.zeros(n_fill, dtype=torch.bool, device=device),
+        randint(12, (n_fill, 4, 4)),
+        torch.ones(n_fill, dtype=torch.bool, device=device))
+
+    def run():
+        loss = None
+        for _ in range(updates):
+            sample, _, _ = replaylib.replay_sample(
+                buf, batch, acfg.alpha, acfg.beta,
+                replaylib.sample_indices(buf, batch, acfg.alpha, gen))
+            loss, _ = dqnlib.train_step(acfg, state, sample)
+        return float(loss)
+
+    run()
+    _sync(device)
+    t0 = time.perf_counter()
+    loss = run()
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    row = {
+        "metric": "dqn_updates_per_s_per_chip",
+        "value": updates / seconds,
+        "unit": "updates/s",
+        "ms_per_update": 1e3 * seconds / updates,
+        "batch": batch,
+        "updates": updates,
+        "features": acfg.features,
+        "hidden": acfg.hidden,
+        "blocks": acfg.num_blocks,
+        "bf16": acfg.bf16,
+        "loss": loss,
+        "seconds": seconds,
+        "card": card_name(device),
+    }
+    print(json.dumps(row))
+    return row
+
+
+def train_loop_main(envs: int = 128, chunks: int = 8,
+                    device: Optional[str] = None, agent=None) -> dict:
+    """Actor-side env-steps/s of the DQN training chunk: the kernel's legal
+    mask, the epsilon-greedy CNN forward (``agent``'s network, default the
+    reference's at full width), the step kernel, dedup and the replay
+    insert, with no learner updates (``updates_per_step=0``);
+    ``TRAIN_LOOP_STEPS_PER_CHUNK`` steps a chunk, one warm chunk, then
+    ``chunks`` timed. Returns the printed row."""
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.training import dqn as dtrain
+
+    device = resolve_device(device)
+    config = dtrain.DQNTrainConfig(agent=agent or DQNConfig(),
+                                   num_envs=envs, updates_per_step=0,
+                                   steps_per_chunk=TRAIN_LOOP_STEPS_PER_CHUNK)
+    state = dtrain.init_loop_state(config, device)
+    dtrain.train_chunk(config, state)
+    _sync(device)
+    before = sk.fused_env_step.launches
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        dtrain.train_chunk(config, state)
+    int(state.buffer.size)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    n_steps = config.steps_per_chunk * chunks
+    row = {
+        "metric": "train_loop_env_steps_per_s_per_chip",
+        "value": envs * n_steps / seconds,
+        "unit": "env-steps/s",
+        "ms_per_step": 1e3 * seconds / n_steps,
+        "envs": envs,
+        "steps_per_chunk": config.steps_per_chunk,
+        "chunks": chunks,
+        "launches": sk.fused_env_step.launches - before,
+        "features": config.agent.features,
+        "bf16": config.agent.bf16,
         "seconds": seconds,
         "card": card_name(device),
     }

@@ -1,1 +1,1 @@
-"""Parameter files."""
+"""Parameter files and full loop-state checkpoints."""

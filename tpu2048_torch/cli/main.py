@@ -1,28 +1,70 @@
 """Command line, the port of :mod:`tpu2048.cli.main` (``train tabular``,
-``eval`` and ``bench`` so far).
+``train dqn``, ``eval`` and ``bench`` so far).
 
 ``python -m tpu2048_torch train tabular --save q.npz`` trains the tabular
-Q-learner on the card and writes its table; ``python -m tpu2048_torch eval
---policy tabular --table q.npz`` or ``--policy model --params FILE.npz``
-plays greedy games, ``--policy random`` (the default) random-legal ones on
-the rollout kernel, and prints ``EvalResult.summary()`` as JSON; ``python -m
-tpu2048_torch bench [--tabular]`` prints one JSON line of throughput
-(:mod:`tpu2048_torch.bench`). ``--cpu`` runs on the CPU instead. Flag
-names and defaults are the JAX CLI's; the DQN's weights come from a params
-``.npz`` (:mod:`tpu2048_torch.checkpoint.params`) in place of an Orbax
-checkpoint directory. Flags of parts not yet ported exit with code 2.
+Q-learner on the card and writes its table; ``python -m tpu2048_torch train
+dqn --checkpoint-dir DIR`` trains the DQN and checkpoints its whole loop
+state there (``--resume`` continues it). ``python -m tpu2048_torch eval
+--policy tabular --table q.npz``, ``--policy model --checkpoint-dir DIR
+[--step N | --named NAME]`` or ``--policy model --params FILE.npz`` plays
+greedy games, ``--policy random`` (the default) random-legal ones on the
+rollout kernel, and prints ``EvalResult.summary()`` as JSON; ``python -m
+tpu2048_torch bench [--tabular | --learner | --train-loop]`` prints one
+JSON line of throughput (:mod:`tpu2048_torch.bench`). ``--cpu`` runs on the
+CPU instead. Flag names and defaults are the JAX CLI's; checkpoints are the
+port's own torch files (:mod:`tpu2048_torch.checkpoint.ckpt`), and a
+params ``.npz`` (:mod:`tpu2048_torch.checkpoint.params`) carries weights
+from the JAX package. Flags of parts not yet ported exit with code 2.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
 def _not_ported(what: str) -> int:
     print(f"{what} is not yet ported", file=sys.stderr)
     return 2
+
+
+def _save_run_config(args, directory: str) -> None:
+    """Persist the model- and env-shaping flags next to the checkpoints, so
+    that eval and a resume rebuild the same state without repeating them."""
+    keys = [
+        "gamma", "epsilon", "epsilon_min", "epsilon_decay", "batch", "envs",
+        "updates_per_step", "updates_per_episode", "max_updates_per_step",
+        "memory_size", "per_alpha", "no_dedup",
+        "no_terminal_bonus", "features", "hidden", "blocks", "no_bf16",
+        "steps_per_chunk", "replay_shards", "alpha", "engine", "seed",
+    ]
+    payload = {k: getattr(args, k) for k in keys if hasattr(args, k)}
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as fh:
+        json.dump(payload, fh, indent=2)
+
+
+def _user_specified(args, dest: str) -> bool:
+    """True if the flag for ``dest`` appeared on the command line (as
+    ``--flag`` or ``--flag=value``) in the argv the parser consumed."""
+    flag = "--" + dest.replace("_", "-")
+    return any(a == flag or a.startswith(flag + "=") for a in args._argv)
+
+
+def _load_run_config(args, directory: str):
+    """Overlay a saved config.json (if present) onto the CLI args; flags
+    the user passed explicitly win over the saved config."""
+    path = os.path.join(directory, "config.json")
+    if not os.path.isfile(path):
+        return args
+    with open(path) as fh:
+        payload = json.load(fh)
+    for k, v in payload.items():
+        if not _user_specified(args, k):
+            setattr(args, k, v)
+    return args
 
 
 def cmd_train(args) -> int:
@@ -66,17 +108,130 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _dqn_refusal(args) -> int:
+    """Exit 2 for the flags of parts not yet ported; 0 when none is set."""
+    refused = (
+        ("--engine lax", args.engine == "lax"),
+        ("--replay-shards other than 1", args.replay_shards != 1),
+        ("--data-parallel above 1", args.data_parallel > 1),
+        ("--model-parallel above 1", args.model_parallel > 1),
+        ("--coordinator", args.coordinator),
+        ("--num-processes", args.num_processes is not None),
+        ("--process-id", args.process_id is not None),
+        ("--debug-csv", args.debug_csv),
+        ("--plot-every", args.plot_every),
+        ("--watchdog", args.watchdog),
+    )
+    for what, on in refused:
+        if on:
+            return _not_ported(what)
+    return 0
+
+
+def _dqn_config(args):
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.env.env import SIMPLE, EnvConfig
+    from tpu2048_torch.training.dqn import DQNTrainConfig
+
+    return DQNTrainConfig(
+        agent=DQNConfig(
+            gamma=args.gamma,
+            epsilon=args.epsilon,
+            epsilon_min=args.epsilon_min,
+            epsilon_decay=args.epsilon_decay,
+            batch_size=args.batch,
+            memory_size=args.memory_size,
+            alpha=args.per_alpha,
+            learning_rate=args.alpha,
+            dedup=not args.no_dedup,
+            features=args.features,
+            hidden=args.hidden,
+            num_blocks=args.blocks,
+            bf16=not args.no_bf16,
+        ),
+        env=EnvConfig(reward=SIMPLE,
+                      terminal_bonus=not args.no_terminal_bonus),
+        num_envs=args.envs,
+        engine=args.engine,
+        updates_per_step=args.updates_per_step,
+        updates_per_episode=args.updates_per_episode,
+        max_updates_per_step=args.max_updates_per_step,
+        train_batch=args.batch,
+        steps_per_chunk=args.steps_per_chunk,
+        checkpoint_episodes=args.checkpoint_every,
+        rollback=args.rollback,
+        rollback_store=args.rollback_store,
+        rollback_block=args.rollback_block,
+        rollback_drop=args.rollback_drop,
+        prune_on_resume=args.prune_on_resume,
+        stop_at_tile=args.stop_at_tile,
+        seed=args.seed,
+    )
+
+
+def cmd_train_dqn(args) -> int:
+    rc = _dqn_refusal(args)
+    if rc:
+        return rc
+    from tpu2048_torch.checkpoint.ckpt import CheckpointManager
+    from tpu2048_torch.metrics.logging import JSONLLogger
+    from tpu2048_torch.training.dqn import (init_loop_state, train,
+                                            warm_start_state)
+    from tpu2048_torch.utils.device import resolve_device
+
+    device = resolve_device("cpu" if args.cpu else None)
+    mgr = None
+    if args.checkpoint_dir:
+        if args.resume:
+            # A resumed run keeps the shapes it was started with.
+            args = _load_run_config(args, args.checkpoint_dir)
+        mgr = CheckpointManager(args.checkpoint_dir)
+        _save_run_config(args, args.checkpoint_dir)
+    config = _dqn_config(args)
+    state = None
+    # A run that resumes from its own checkpoints carries its lineage in
+    # them: the warm start is skipped then.
+    own = args.resume and mgr is not None and mgr.latest_step() is not None
+    if args.warm_start and not own:
+        state = init_loop_state(config, device)
+        try:
+            warm_start_state(state, args.warm_start,
+                             named=args.warm_start_named,
+                             step=args.warm_start_step)
+        except FileNotFoundError as e:
+            # A missing source never fixes itself: exit 2, the code a
+            # supervisor treats as permanent.
+            print(f"error: --warm-start: {e}", file=sys.stderr)
+            return 2
+    logger = JSONLLogger(args.log)
+    try:
+        train(config, args.episodes, device, log_fn=logger.log, state=state,
+              ckpt_manager=mgr, resume=args.resume)
+    finally:
+        logger.close()
+    return 0
+
+
 def _model_policy(args, device):
     from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.checkpoint.ckpt import restore_params_only
     from tpu2048_torch.checkpoint.params import load_params
     from tpu2048_torch.eval.evaluate import greedy_dqn_policy
     from tpu2048_torch.models.dqn import create_model, load_flax_params
 
-    params = load_params(args.params)
+    if args.checkpoint_dir:
+        args = _load_run_config(args, args.checkpoint_dir)
     config = DQNConfig(features=args.features, hidden=args.hidden,
                        num_blocks=args.blocks, bf16=not args.no_bf16)
-    return greedy_dqn_policy(
-        load_flax_params(create_model(config, device), params))
+    if not args.checkpoint_dir:
+        return greedy_dqn_policy(load_flax_params(
+            create_model(config, device), load_params(args.params)))
+    _, model = restore_params_only(args.checkpoint_dir, args.step, config,
+                                   named=args.named, device=device)
+    if model is None:
+        raise FileNotFoundError(
+            f"no checkpoint found in {args.checkpoint_dir}")
+    return greedy_dqn_policy(model)
 
 
 def _tabular_policy(args, device):
@@ -87,8 +242,9 @@ def _tabular_policy(args, device):
 
 
 def cmd_eval(args) -> int:
-    if args.policy == "model" and not args.params:
-        print("--params required for --policy model", file=sys.stderr)
+    if args.policy == "model" and not (args.params or args.checkpoint_dir):
+        print("--checkpoint-dir or --params required for --policy model",
+              file=sys.stderr)
         return 2
     if args.policy == "tabular" and not args.table:
         print("--table required for --policy tabular", file=sys.stderr)
@@ -123,15 +279,17 @@ def cmd_eval(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    for flag, on in (("--learner", args.learner),
-                     ("--train-loop", args.train_loop),
-                     ("--scale", args.scale)):
-        if on:
-            return _not_ported(flag)
+    if args.scale:
+        return _not_ported("--scale")
     from tpu2048_torch import bench
 
     device = "cpu" if args.cpu else None
-    if args.tabular:
+    if args.learner:
+        bench.learner_main(batch=args.train_batch, updates=args.updates,
+                           device=device)
+    elif args.train_loop:
+        bench.train_loop_main(envs=args.envs, device=device)
+    elif args.tabular:
         bench.tabular_main(batch=args.batch or 4096, device=device)
     else:
         bench.main(batch=args.batch or 65536, steps=args.steps,
@@ -172,6 +330,101 @@ def _add_tabular_args(p: argparse.ArgumentParser) -> None:
                    help="run on the CPU instead of the card")
 
 
+def _add_dqn_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--episodes", type=int, default=2000)
+    p.add_argument("--alpha", type=float, default=5e-5,
+                   help="learning rate (Adam)")
+    p.add_argument("--gamma", type=float, default=0.99)
+    p.add_argument("--epsilon", type=float, default=0.9)
+    p.add_argument("--epsilon-min", type=float, default=0.001)
+    p.add_argument("--epsilon-decay", type=float, default=0.9999)
+    p.add_argument("--batch", type=int, default=64,
+                   help="learner batch size (reference: 64)")
+    p.add_argument("--envs", type=int, default=128, help="parallel envs")
+    p.add_argument("--updates-per-step", type=int, default=None,
+                   help="FIXED learner updates per vector env step "
+                        "(ablation mode; default: the reference's "
+                        "updates-per-episode debt schedule)")
+    p.add_argument("--updates-per-episode", type=int, default=100,
+                   help="learner updates owed per completed episode "
+                        "(reference: 100 replay calls at episode end, "
+                        "mainDQL:225)")
+    p.add_argument("--max-updates-per-step", type=int, default=512,
+                   help="cap on debt drained per vector step")
+    p.add_argument("--memory-size", type=int, default=50_000)
+    p.add_argument("--per-alpha", type=float, default=0.0,
+                   help="priority exponent (0 = uniform, reference default)")
+    p.add_argument("--no-dedup", action="store_true",
+                   help="disable the 2-back transition dedup")
+    p.add_argument("--no-terminal-bonus", action="store_true")
+    p.add_argument("--features", type=int, default=2048)
+    p.add_argument("--hidden", type=int, default=1024)
+    p.add_argument("--blocks", type=int, default=3)
+    p.add_argument("--no-bf16", action="store_true")
+    p.add_argument("--engine", choices=["auto", "fast", "lax"], default="auto",
+                   help="actor engine: fast = the env-step kernel; lax is "
+                        "not yet ported")
+    p.add_argument("--steps-per-chunk", type=int, default=16)
+    p.add_argument("--replay-shards", type=int, default=1,
+                   help="only 1 is ported")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="only 1 is ported")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="only 1 is ported")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="not yet ported")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="not yet ported")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="not yet ported")
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=100,
+                   help="full state save every N episodes (mainDQL:324)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint")
+    p.add_argument("--prune-on-resume", type=int, default=0,
+                   help="drop N worst episodes from replay after resume "
+                        "(reference load_memory pruned 99)")
+    p.add_argument("--warm-start", type=str, default=None, metavar="DIR",
+                   help="checkpoint dir of ANOTHER run to warm-start from: "
+                        "carries network/target/optimizer/epsilon/replay, "
+                        "resets envs + episode counters + metrics "
+                        "(mainDQL:124-139). With --resume, an existing "
+                        "checkpoint in --checkpoint-dir takes precedence.")
+    p.add_argument("--warm-start-named", type=str, default=None,
+                   metavar="NAME",
+                   help="named checkpoint inside --warm-start (e.g. "
+                        "tile_1024_ep7520); default = latest step")
+    p.add_argument("--warm-start-step", type=int, default=None,
+                   help="step checkpoint inside --warm-start "
+                        "(default = latest)")
+    p.add_argument("--rollback", action="store_true",
+                   help="enable the block rollback-on-regression policy")
+    p.add_argument("--rollback-store", choices=["memory", "disk"],
+                   default="memory",
+                   help="block checkpoints in device memory (default) or "
+                        "as named checkpoints on disk")
+    p.add_argument("--rollback-block", type=int, default=20,
+                   help="episodes per rollback comparison block "
+                        "(reference BLOCK_SIZE, mainDQL:109)")
+    p.add_argument("--rollback-drop", type=float, default=50.0,
+                   help="avg final-max-tile drop vs the previous block "
+                        "that triggers a restore (mainDQL:287)")
+    p.add_argument("--plot-every", type=int, default=0,
+                   help="not yet ported")
+    p.add_argument("--stop-at-tile", type=int, default=0,
+                   help="stop the run once best_tile reaches this value "
+                        "(0 = full episode budget)")
+    p.add_argument("--debug-csv", type=str, default=None,
+                   help="not yet ported")
+    p.add_argument("--watchdog", type=float, default=0.0,
+                   help="not yet ported")
+    p.add_argument("--log", type=str, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the card")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu2048_torch",
@@ -186,6 +439,10 @@ def build_parser() -> argparse.ArgumentParser:
                          allow_abbrev=False)
     _add_tabular_args(ptab)
     ptab.set_defaults(fn=cmd_train)
+    pdqn = st.add_parser("dqn", help="DQN (Deep_QLearning)",
+                         allow_abbrev=False)
+    _add_dqn_args(pdqn)
+    pdqn.set_defaults(fn=cmd_train_dqn)
 
     pe = sub.add_parser("eval", help="batched greedy evaluation",
                         allow_abbrev=False)
@@ -193,6 +450,14 @@ def build_parser() -> argparse.ArgumentParser:
                     default="random")
     pe.add_argument("--params", type=str, default=None,
                     help="params .npz of the Q-network (flax names)")
+    pe.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="a train dqn checkpoint directory; its "
+                         "config.json gives the network's widths")
+    pe.add_argument("--step", type=int, default=None,
+                    help="step checkpoint to play (default: the latest)")
+    pe.add_argument("--named", type=str, default=None,
+                    help="load a NAMED checkpoint (milestone tile_*, "
+                         "block_checkpoint) instead of a step")
     pe.add_argument("--table", type=str, default=None,
                     help="Q-table .npz for --policy tabular")
     pe.add_argument("--games", type=int, default=512)
@@ -220,9 +485,18 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--tabular", action="store_true",
                     help="benchmark the tabular training chunk's env "
                          "steps/s (shaped env + hashed Q-table)")
-    pb.add_argument("--learner", action="store_true", help="not yet ported")
+    pb.add_argument("--learner", action="store_true",
+                    help="benchmark DQN learner updates/s (full-size CNN) "
+                         "instead of env steps/s")
     pb.add_argument("--train-loop", action="store_true",
-                    help="not yet ported")
+                    help="benchmark the DQN training chunk's actor-side "
+                         "env steps/s (full-size CNN policy)")
+    pb.add_argument("--train-batch", type=int, default=64,
+                    help="learner batch for --learner")
+    pb.add_argument("--updates", type=int, default=200,
+                    help="timed updates for --learner")
+    pb.add_argument("--envs", type=int, default=128,
+                    help="env count for --train-loop")
     pb.add_argument("--scale", type=str, default=None, help="not yet ported")
     pb.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
@@ -232,6 +506,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # The consumed argv, so that "did the user pass this flag" checks work
+    # for programmatic main([...]) calls too.
+    args._argv = list(sys.argv[1:] if argv is None else argv)
     return args.fn(args)
 
 

@@ -11,11 +11,17 @@ and add the bias in ``dtype``; the head runs in float32 on float32
 parameters. Flatten runs in NHWC order, as the flax module flattens, so the
 dense weights carry over unpermuted. Convolutions and matrix products are
 library calls (cuDNN/cuBLAS), as they are XLA ops in the JAX package.
+
+In train mode dropout draws its mask from an explicit ``torch.Generator``
+by flax's rule: keep with probability ``1 - rate``, scale the kept values
+by ``1 / (1 - rate)`` in ``dtype``. The gradient flows through the ``dtype``
+casts into the float32 parameters.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,10 +77,13 @@ class DQNCNN(nn.Module):
             for i in range(num_blocks)
         )
         self.dense = nn.Linear(16 * features, hidden)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.head = nn.Linear(hidden, action_space)
 
-    def forward(self, boards: torch.Tensor) -> torch.Tensor:
+    def forward(self, boards: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Q-values; in train mode with a nonzero dropout rate the mask is
+        drawn from ``generator`` (required then)."""
         # One-hot by comparison: an exponent >= 16 gives a zero vector, as
         # jax.nn.one_hot does (F.one_hot would raise).
         channels = torch.arange(NUM_TILE_CHANNELS, device=boards.device)
@@ -85,7 +94,13 @@ class DQNCNN(nn.Module):
         x = x.permute(0, 2, 3, 1).flatten(1)  # flatten in NHWC order
         x = F.relu(F.linear(x, self.dense.weight.to(self.dtype))
                    + self.dense.bias.to(self.dtype))
-        x = self.dropout(x)
+        if self.training and self.dropout_rate > 0:
+            if generator is None:
+                raise ValueError("train-mode dropout needs a generator")
+            keep_prob = 1.0 - self.dropout_rate
+            keep = torch.rand(x.shape, generator=generator,
+                              device=generator.device).to(x.device) < keep_prob
+            x = torch.where(keep, x / keep_prob, 0.0)
         return self.head(x.to(torch.float32))
 
 
@@ -143,28 +158,39 @@ def load_flax_params(module: DQNCNN, params) -> DQNCNN:
     OIHW and dense kernels are transposed. Raises on a missing, extra or
     misshapen entry.
     """
+    own = module.state_dict()
+    for key, value in flax_to_torch_layout(module, params).items():
+        own[key].copy_(value)
+    return module
+
+
+def flax_to_torch_layout(module: DQNCNN, tree):
+    """A tree laid out like the flax parameters (the parameters, or Adam's
+    moments of them) as ``{state-dict name: float32 CPU tensor}`` in the
+    module's layout. Raises on a missing, extra or misshapen entry."""
     expected = {f"block{i}" for i in range(len(module.blocks))} | {"dense",
                                                                    "head"}
-    if set(params) != expected:
-        raise ValueError(f"parameter tree has {sorted(params)}, the module "
+    if set(tree) != expected:
+        raise ValueError(f"parameter tree has {sorted(tree)}, the module "
                          f"expects {sorted(expected)}")
     state = {}
     for i in range(len(module.blocks)):
-        block = params[f"block{i}"]
+        block = tree[f"block{i}"]
         for j, k in enumerate(KERNEL_SIZES):
             state[f"blocks.{i}.convs.{j}.weight"] = np.transpose(
                 block[f"conv{k}x{k}_kernel"], (3, 2, 0, 1))
             state[f"blocks.{i}.convs.{j}.bias"] = block[f"conv{k}x{k}_bias"]
     for name in ("dense", "head"):
-        state[f"{name}.weight"] = np.transpose(params[name]["kernel"])
-        state[f"{name}.bias"] = params[name]["bias"]
-    own = module.state_dict()
+        state[f"{name}.weight"] = np.transpose(tree[name]["kernel"])
+        state[f"{name}.bias"] = tree[name]["bias"]
+    own = dict(module.named_parameters())
+    out = {}
     for key, value in state.items():
         if tuple(value.shape) != tuple(own[key].shape):
             raise ValueError(f"{key}: file has {tuple(value.shape)}, module "
                              f"has {tuple(own[key].shape)}")
-        own[key].copy_(torch.from_numpy(np.array(value, np.float32)))
-    return module
+        out[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
+    return out
 
 
 @torch.no_grad()
