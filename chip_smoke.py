@@ -131,12 +131,34 @@ can be timed in one run on one card.
     and 8 timed chunks, no updates) through the CLI, with their JSON lines
     and launch counts, and the learner's bound: the larger of its
     operations at the bf16 dense peak and its bytes at the HBM rate.
-16. One JSON line describing the four kernels (the step kernel's launches
-    counted over phases 4 and 13), then the result line.
+16. The fused conv (``fused_conv=True``) at full width: its bf16 forward
+    against the four-conv forward on the same weights (seed 2048) at batch
+    128 and 512, max |dQ| against the bf16 tolerance of the CPU tests and
+    the greedy actions where the top-two gap exceeds it, both forwards
+    timed in turns; a learner update at batch 64 (``bench --learner``'s) of
+    each module in turns: ms an update, and under torch.profiler the
+    kernels and device time an update and the device's busy share, beside
+    the same work's bound and the fused module's own; phase 14's narrow
+    trainer with the fused conv, card against CPU; and `train dqn` through
+    the Python API at the CLI's defaults, two chunks with updates, fused
+    and four-conv.
+17. ``train tabular --table-backend legacy`` through the CLI at the
+    defaults (capacity 2**25, batch 1024, shaped), cut to 3 chunks, with
+    ``--watchdog`` and ``--log``: step-kernel launches = env steps and no
+    table kernel, ms a step beside phase 7's packed table; then a narrow
+    legacy trainer on the card against the CPU on the same bits and draws:
+    keys, boards, counters and ``dropped`` equal, Q within ``Q_RTOL``.
+18. One JSON line describing the four kernels (the step kernel's launches
+    counted over phases 4, 13, 16 and 17), then the result line.
+
+Phase 13's ``train dqn`` also writes env 0's ``--debug-csv`` (the
+reference's header, one row a vector step) under ``--watchdog``, and
+``analyze`` reads its JSONL through the CLI.
 """
 
 import concurrent.futures
 import contextlib
+import csv
 import functools
 import io
 import itertools
@@ -228,8 +250,21 @@ DQN_ROW_KEYS = {"episodes", "env_steps", "epsilon", "lr", "buffer_size",
                 "train_steps", "mean_return", "mean_score", "mean_length",
                 "best_tile", "loss", "tile_hist", "steps_per_s",
                 "update_debt"}
+# Phase 13 also writes env 0's debug CSV, whose header is the reference
+# driver's (mainDQL:137), under a watchdog that must not fire.
+DEBUG_CSV_HEADER = ["Episode", "Action", "Legal Moves", "Reward",
+                    "Total Reward", "State", "Done", "Ho salvato", "Mosse"]
+WATCHDOG_S = 900
 # H100 SXM (NVIDIA data sheet): dense bf16 tensor-core peak.
 BF16_FLOPS_PER_S = 989e12
+# The fused conv (phase 16): the forward compared at `train dqn`'s and the
+# eval's batch against the bf16 TOL of tests/test_torch_dqn_model.py (of
+# max(1, max |Q|)); learner updates a timed turn and under the profiler;
+# endgame lanes a chunk of its `train dqn` run (100 updates owed each).
+FUSED_Q_BATCHES = (DQN_ENVS, EVAL_GAMES)
+DQN_MODEL_BF16_TOL = 1e-2
+FUSED_TIMED_UPDATES, FUSED_TRACED_UPDATES = 100, 10
+FUSED_ENDGAME_LANES = 4
 # Narrow DQN trainer, card against CPU, float32 with TF32 off: the sums of
 # cuDNN and of the CPU differ in order. Adam moves a weight by about lr a
 # step whatever the gradient's size, so a weight whose gradient is at the
@@ -1602,24 +1637,26 @@ def phase_rollout_timings(sk, torch, device, cases):
     return rows[0]
 
 
-def dqn_forward_flops(features, hidden, blocks):
+def dqn_forward_flops(features, hidden, blocks, fused=False):
     """Multiply-add operations x 2 of one board through the Q-network:
     each block's four convolutions over the 16 cells of the SAME-padded
     board (k*k taps each, ``features / 4`` filters), the dense layer and the
-    head."""
-    taps = sum(k * k for k in (1, 2, 3, 4))
+    head. ``fused``: the fused block's own work, one 4x4 convolution (16
+    taps) for all ``features`` filters, the zero-embedded taps included."""
+    taps = 4 * 16 if fused else sum(k * k for k in (1, 2, 3, 4))
     conv = sum(2 * 16 * taps * (16 if i == 0 else features) * (features // 4)
                for i in range(blocks))
     return conv + 2 * 16 * features * hidden + 2 * hidden * 4
 
 
-def learner_bound_ms(n_params, batch, features, hidden, blocks):
+def learner_bound_ms(n_params, batch, features, hidden, blocks, fused=False):
     """The least time of one update on the card: the larger of its
     operations at the bf16 dense peak (a train forward, a backward of twice
-    its work, and a target forward) and its bytes at the HBM rate (the
-    float32 parameters, target parameters and Adam's two moments read once;
-    the parameters and moments written once)."""
-    ops = 4 * batch * dqn_forward_flops(features, hidden, blocks)
+    its work, and a target forward; ``fused``: of the fused module) and its
+    bytes at the HBM rate (the float32 parameters, target parameters and
+    Adam's two moments read once; the parameters and moments written
+    once)."""
+    ops = 4 * batch * dqn_forward_flops(features, hidden, blocks, fused)
     bytes_moved = 4 * n_params * 7
     return (max(ops / BF16_FLOPS_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3,
             ops, bytes_moved)
@@ -1727,8 +1764,10 @@ def phase_dqn_path(sk, tk, torch, device):
 
     with tempfile.TemporaryDirectory() as tmp:
         ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "train.jsonl")
+        trace = os.path.join(tmp, "trace.csv")
         argv = ["train", "dqn", "--episodes", str(DQN_EPISODES),
-                "--checkpoint-dir", ck, "--log", log, "--seed", str(SEED)]
+                "--checkpoint-dir", ck, "--log", log, "--seed", str(SEED),
+                "--debug-csv", trace, "--watchdog", str(WATCHDOG_S)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _, counts, wall = run_path(sk, tk, torch, cli_main, argv)
@@ -1763,6 +1802,24 @@ def phase_dqn_path(sk, tk, torch, device):
                   f"{1e3 * DQN_ENVS / row['steps_per_s']:.3f} ms a vector "
                   f"step, {upd:.2f} updates a step, {row['steps_per_s']:.0f} "
                   f"env-steps/s")
+        with open(trace, newline="") as fh:
+            lines = list(csv.reader(fh))
+        if lines[:1] != [DEBUG_CSV_HEADER] or len(lines) != 1 + steps:
+            fail(f"train dqn --debug-csv: header {lines[:1]}, "
+                 f"{len(lines) - 1} rows for {steps} vector steps")
+        ends = sum(row[6] == "True" for row in lines[1:])
+        print(f"phase 13: --debug-csv: the reference's header and "
+              f"{len(lines) - 1} rows = {steps} vector steps (env 0 ended "
+              f"{ends} episode(s)); --watchdog {WATCHDOG_S} never fired")
+        rc, summary = run_cli(cli_main, ["analyze", "--log", log])
+        if (rc != 0 or summary["episodes"] != last["episodes"]
+                or summary["train_steps"] != last["train_steps"]
+                or summary["best_tile"] != last["best_tile"]):
+            fail(f"analyze of the run's JSONL: {summary}")
+        print("phase 13: analyze of the run's JSONL: " + json.dumps(
+            {k: summary[k] for k in ("episodes", "env_steps", "best_tile",
+                                     "train_steps", "late_mean_score",
+                                     "final_tile_distribution")}))
         split, forward_ms = profile_dqn_step(torch, device, ck)
 
         text, rcounts, rwall = run_path(sk, tk, torch, cli_main, [
@@ -1828,10 +1885,12 @@ class HostDraws:
         return self.source.indices(buffer, batch, alpha)
 
 
-def phase_dqn_narrow(torch, device):
+def phase_dqn_narrow(torch, device, fused=False):
     """A narrow DQN trainer on the card and on the CPU, on the same bits,
     draws and weights: integer state equal, parameters and losses within
-    the stated tolerances."""
+    the stated tolerances (phase 14; with ``fused``, the fused conv in
+    phase 16)."""
+    label = "phase 16" if fused else "phase 14"
     from tpu2048_torch.agents.dqn import DQNConfig, current_lr
     from tpu2048_torch.env import fast as tfast
     from tpu2048_torch.ops.board import legal_moves_mask
@@ -1840,7 +1899,7 @@ def phase_dqn_narrow(torch, device):
 
     b, steps, chunks, updates = 256, 16, 3, 4
     agent = DQNConfig(features=32, hidden=32, num_blocks=1, bf16=False,
-                      dropout=0.0, memory_size=2048)
+                      dropout=0.0, memory_size=2048, fused_conv=fused)
     config = dtrain.DQNTrainConfig(agent=agent, num_envs=b, train_batch=32,
                                    steps_per_chunk=steps,
                                    updates_per_step=updates, seed=SEED)
@@ -1878,7 +1937,7 @@ def phase_dqn_narrow(torch, device):
 
     def same(a, c, what):
         if not torch.equal(a.cpu(), c):
-            fail(f"narrow DQN trainer: {what}, card != CPU")
+            fail(f"{label}: narrow DQN trainer: {what}, card != CPU")
 
     for name in ("boards", "legal", "score", "episode_steps",
                  "episode_return"):
@@ -1897,14 +1956,15 @@ def phase_dqn_narrow(torch, device):
         same(getattr(card, name), getattr(cpu, name), name)
     for name in dtrain.DQNLoopState.COUNTERS:
         if getattr(card, name) != getattr(cpu, name):
-            fail(f"narrow DQN trainer: {name}, card != CPU")
+            fail(f"{label}: narrow DQN trainer: {name}, card != CPU")
     if (card.agent.train_steps != cpu.agent.train_steps
             or card.agent.step_counter != cpu.agent.step_counter
             or current_lr(card.agent) != current_lr(cpu.agent)
             or card.agent.train_steps != updates * steps * chunks
             or card.episodes_done < b // 4
             or not current_lr(card.agent) < agent.learning_rate):
-        fail("narrow DQN trainer: agent counters or LR, card != CPU")
+        fail(f"{label}: narrow DQN trainer: agent counters or LR, "
+             "card != CPU")
     diffs = torch.cat([(p.detach().cpu() - q.detach()).abs().flatten()
                        for p, q in zip(card.agent.model.parameters(),
                                        cpu.agent.model.parameters())])
@@ -1916,11 +1976,13 @@ def phase_dqn_narrow(torch, device):
     if (loose > diffs.numel() * DQN_NARROW_LOOSE_SHARE
             or loss_err > DQN_NARROW_LOSS_RTOL
             or not math.isfinite(float(card.loss_sum))):
-        fail(f"narrow DQN trainer: parameters {loose} of {diffs.numel()} "
+        fail(f"{label}: narrow DQN trainer: parameters {loose} of "
+             f"{diffs.numel()} "
              f"beyond {DQN_NARROW_PARAM_ATOL}, max {float(diffs.max()):.3e};"
              f" loss {loss_err:.3e}")
-    print(f"phase 14: narrow DQN trainer (B={b}, features 32, hidden 32, 1 "
-          f"block, float32, TF32 off; {chunks} chunks of {steps} steps, "
+    print(f"{label}: narrow DQN trainer (B={b}, features 32, hidden 32, 1 "
+          f"block, {'fused conv, ' if fused else ''}float32, TF32 off; "
+          f"{chunks} chunks of {steps} steps, "
           f"{updates} updates a step), card == CPU on the integer state "
           f"({card.episodes_done} episodes, buffer {int(card.buffer.size)}, "
           f"{card.agent.train_steps} updates, LR {current_lr(card.agent)}); "
@@ -1972,6 +2034,289 @@ def phase_dqn_benches(sk, tk, torch):
     return learner, loop
 
 
+def fused_pair(torch, device):
+    """The full-width bf16 Q-network with weights from ``SEED``, as the
+    four-convolution module and as the fused one on the same weights."""
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.models import dqn as tdqn
+
+    four = tdqn.init_params(tdqn.create_model(DQNConfig(), device),
+                            torch.Generator(device=device).manual_seed(SEED))
+    fused = tdqn.create_model(DQNConfig(fused_conv=True), device)
+    fused.load_state_dict(four.state_dict())
+    return four.eval(), fused.eval()
+
+
+def phase_fused_forward(torch, device):
+    """The fused forward against the four-conv forward at full width on the
+    same boards, at ``train dqn``'s and the eval's batch, and both timed
+    eagerly in turns (four, fused, fused, four)."""
+    four, fused = fused_pair(torch, device)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    for b in FUSED_Q_BATCHES:
+        boards = torch.randint(0, 12, (b, 4, 4), dtype=torch.int8,
+                               generator=gen)
+        boards[torch.rand((b, 4, 4), generator=gen) < 0.3] = 0
+        boards = boards.to(device)
+        with torch.inference_mode():
+            q4, qf = four(boards).float(), fused(boards).float()
+            times = {"four": [], "fused": []}
+            for name in ("four", "fused", "fused", "four"):
+                model = four if name == "four" else fused
+                times[name].append(elapsed_ms(torch, lambda: model(boards),
+                                              50))
+        err = float((qf - q4).abs().max())
+        tol = DQN_MODEL_BF16_TOL * max(1.0, float(q4.abs().max()))
+        top2 = q4.topk(2, dim=1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol
+        agree = (qf.argmax(1) == q4.argmax(1))[sure]
+        if (not torch.isfinite(qf).all() or not err <= tol
+                or not bool(agree.all())):
+            fail(f"fused forward at batch {b}: max |dQ| {err:.3e} against "
+                 f"{tol:.3e}, greedy agreement {int(agree.sum())} of "
+                 f"{int(sure.sum())}")
+        print(f"phase 16: fused vs four-conv forward, full width, bf16, "
+              f"batch {b}: max |dQ| {err:.3e} (tolerance {tol:.3e} = "
+              f"{DQN_MODEL_BF16_TOL} x max(1, max |Q|)); greedy actions "
+              f"agree on {int(agree.sum())} of {int(sure.sum())} boards "
+              f"whose top-two gap exceeds it (of {b}); eager forward "
+              f"four-conv {fmt_ms(times['four'])} ms, fused "
+              f"{fmt_ms(times['fused'])} ms (CUDA events, 50 calls, in "
+              f"turns)")
+    del four, fused
+    torch.cuda.empty_cache()
+
+
+def fmt_ms(values):
+    return ", ".join(f"{v:.4f}" for v in values)
+
+
+def phase_fused_learner(torch, device):
+    """One learner update at batch 64 as `bench --learner` runs it, with the
+    four-conv and the fused module, in one call and in turns: ms an update
+    (host clock between synchronisations), and under torch.profiler the
+    kernels and the device time an update, the device's busy share, and
+    both bounds. Returns the rows."""
+    from tpu2048_torch import bench
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.metrics import profiling
+    from tpu2048_torch.models import dqn as tdqn
+    from torch.autograd import DeviceType
+
+    full = DQNConfig()
+    n_params = tdqn.param_count(tdqn.create_model(full, "meta"))
+    updates = {
+        name: bench.learner_update(DQNConfig(memory_size=4096,
+                                             fused_conv=fused), 64, device)[1]
+        for name, fused in (("four", False), ("fused", True))}
+    ms = {"four": [], "fused": []}
+    for name in ("four", "fused", "fused", "four"):
+        ms[name].append(1e3 * profiling.time_fn(
+            updates[name], iters=FUSED_TIMED_UPDATES, warmup=20))
+    rows = {}
+    for name, update in updates.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp) as prof:
+                for _ in range(FUSED_TRACED_UPDATES):
+                    loss = update()
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("Optimizer.")]
+        n = sum(e.count for e in kernels) / FUSED_TRACED_UPDATES
+        dev_ms = (sum(e.self_device_time_total for e in kernels) / 1e3
+                  / FUSED_TRACED_UPDATES)
+        bound, ops, moved = learner_bound_ms(
+            n_params, 64, full.features, full.hidden, full.num_blocks,
+            fused=name == "fused")
+        best = min(ms[name])
+        rows[name] = dict(ms=ms[name], kernels=n, device_ms=dev_ms,
+                          busy=dev_ms / best, bound=bound, ops=ops,
+                          loss=float(loss))
+        if not math.isfinite(float(loss)) or not n > 0:
+            fail(f"learner update, {name}: loss {float(loss)}, {n} kernels")
+        print(f"phase 16: learner update at batch 64, {name}: "
+              f"{fmt_ms(ms[name])} ms an update ({FUSED_TIMED_UPDATES} "
+              f"updates a turn, in turns); under torch.profiler "
+              f"{n:.0f} kernels and {dev_ms:.3f} ms of device time an "
+              f"update: the device busy {100 * dev_ms / best:.1f}% of the "
+              f"fastest turn; bound {bound:.4f} ms ({ops:.4g} operations "
+              f"at {BF16_FLOPS_PER_S:.3g}/s, {moved:.4g} bytes at "
+              f"{HBM_BYTES_PER_S:.3g}/s): {best / bound:.2f}x")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"phase 16:   {name}: "
+                  f"{e.self_device_time_total / 1e3 / FUSED_TRACED_UPDATES:.4f}"
+                  f" ms, {e.count / FUSED_TRACED_UPDATES:.0f} an update: "
+                  f"{e.key[:100]}")
+    print(f"phase 16: the same work's bound is the four-conv module's, "
+          f"{rows['four']['bound']:.4f} ms; the fused module's own "
+          f"operations bound it at {rows['fused']['bound']:.4f} ms; fused "
+          f"/ four-conv ms an update: "
+          f"{min(ms['fused']) / min(ms['four']):.3f}")
+    del updates
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_fused_train(sk, tk, torch, device):
+    """`train dqn` cut in depth through the Python API, at the CLI's
+    defaults with ``fused_conv=True`` and, for comparison, without: two
+    chunks, each after ``FUSED_ENDGAME_LANES`` lanes were put on endgame
+    boards so that their episodes end and the debt brings updates into
+    both chunks. Returns the fused run's step-kernel launches."""
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.ops.board import legal_moves_mask
+    from tpu2048_torch.ops.step_kernel import from_cell_major, to_cell_major
+    from tpu2048_torch.training import dqn as dtrain
+
+    fused_launches = 0
+    for fused in (False, True):
+        config = dtrain.DQNTrainConfig(agent=DQNConfig(fused_conv=fused),
+                                       seed=SEED)
+        state = dtrain.init_loop_state(config, device)
+        gen = torch.Generator().manual_seed(SEED + 11)
+        chunks = []
+        for _ in range(2):
+            boards = from_cell_major(state.env_state.boards).clone()
+            boards[:FUSED_ENDGAME_LANES] = endgame_boards(
+                gen, FUSED_ENDGAME_LANES).to(device)
+            state.env_state.boards = to_cell_major(boards)
+            state.env_state.legal = legal_moves_mask(boards)
+            before = state.agent.train_steps
+            zero_counts(sk, tk)
+            t0 = time.perf_counter()
+            dtrain.train_chunk(config, state)
+            counts = read_counts(sk, tk, torch)
+            wall = time.perf_counter() - t0
+            upd = state.agent.train_steps - before
+            if (counts["step"] != DQN_CHUNK or upd == 0
+                    or counts["gather"] or counts["scatter"]
+                    or counts["rollout"]):
+                fail(f"train dqn, fused {fused}: launches {counts}, {upd} "
+                     f"updates")
+            chunks.append((1e3 * wall / DQN_CHUNK, upd))
+            if fused:
+                fused_launches += counts["step"]
+        loss = float(state.last_loss)
+        if not math.isfinite(loss):
+            fail(f"train dqn, fused {fused}: loss {loss}")
+        print(f"phase 16: train dqn through the Python API, full width, "
+              f"{'fused conv' if fused else 'four-conv'}: "
+              + "; ".join(f"chunk {i + 1}: {ms:.3f} ms a vector step, "
+                          f"{upd} updates ({ms * DQN_CHUNK / upd:.3f} ms of "
+                          f"the chunk an update)"
+                          for i, (ms, upd) in enumerate(chunks))
+              + f"; {DQN_CHUNK} step-kernel launches a chunk; last loss "
+              f"{loss:.4g}, {state.episodes_done} episodes")
+        del state
+        torch.cuda.empty_cache()
+    return fused_launches
+
+
+def phase_legacy(sk, tk, torch, device, packed_rows):
+    """`train tabular --table-backend legacy` through the CLI at the
+    defaults (capacity 2**25, batch 1024, shaped), cut to 3 chunks, with
+    --watchdog and --log, beside phase 7's packed rows; returns the step
+    kernel's launches."""
+    from tpu2048_torch.cli.main import main as cli_main
+    from tpu2048_torch.metrics.logging import read_jsonl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "legacy.jsonl")
+        argv = ["train", "tabular", "--table-backend", "legacy", "--batch",
+                str(TABLE_BATCH), "--capacity-log2", str(TABLE_LOG2),
+                "--episodes", str(TABLE_EPISODES), "--steps-per-chunk",
+                str(TABLE_CHUNK), "--seed", "0", "--log", log, "--watchdog",
+                str(WATCHDOG_S)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, counts, wall = run_path(sk, tk, torch, cli_main, argv)
+        rows = read_jsonl(log)
+    peak = torch.cuda.max_memory_allocated()
+    for row in rows:
+        print("phase 17: row " + json.dumps(row))
+    steps = rows[-1]["env_steps"] // TABLE_BATCH if rows else 0
+    if (len(rows) < 2 or steps != len(rows) * TABLE_CHUNK
+            or counts["step"] != steps or counts["gather"]
+            or counts["scatter"] or counts["rollout"]):
+        fail(f"legacy: {len(rows)} chunks, {steps} steps, launches {counts}")
+    for row in rows:
+        if (set(row) != ROW_KEYS or not row["q_states"] > 0
+                or sum(row["action_counts"]) != row["env_steps"]):
+            fail(f"legacy: implausible row {row}")
+    print(f"phase 17: train tabular --table-backend legacy, capacity "
+          f"2**{TABLE_LOG2} ({(24 << TABLE_LOG2) >> 20} MiB of keys and Q), "
+          f"batch {TABLE_BATCH}, "
+          f"shaped: {counts['step']} step-kernel launches = {steps} env "
+          f"steps, no table kernel; --watchdog {WATCHDOG_S} never fired; "
+          f"{wall:.3f} s for the CLI call; peak device memory {peak} bytes")
+    for i, row in enumerate(rows):
+        packed = packed_rows[i] if i < len(packed_rows) else None
+        beside = (f"; packed (phase 7): "
+                  f"{1e3 * TABLE_BATCH / packed['steps_per_s']:.3f} ms a "
+                  f"step, {packed['steps_per_s']:.0f} env-steps/s"
+                  if packed else "")
+        print(f"phase 17: chunk {i + 1}: legacy "
+              f"{1e3 * TABLE_BATCH / row['steps_per_s']:.3f} ms a step, "
+              f"{row['steps_per_s']:.0f} env-steps/s{beside}")
+    return counts["step"]
+
+
+def phase_legacy_narrow(torch, device):
+    """A narrow legacy-table trainer on the card and on the CPU on the same
+    bits and draws: keys, boards and ``dropped`` equal, Q within
+    ``Q_RTOL``."""
+    from tpu2048_torch.agents import tabular as ttab
+    from tpu2048_torch.agents import tabular_fast as tabf
+    from tpu2048_torch.env import fast as tfast
+    from tpu2048_torch.training import tabular as ttrain
+
+    b, log2, steps = 256, 14, 64
+    config = ttrain.TabularTrainConfig(
+        agent=ttab.TabularConfig(capacity_log2=log2), batch_size=b,
+        steps_per_chunk=steps, table_backend="legacy")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    bits = [torch.randint(-(2**31), 2**31, (8, b), dtype=torch.int32,
+                          generator=gen) for _ in range(steps + 1)]
+    # Explore draws below 0.5 < epsilon: every action is the drawn one.
+    draws = [(torch.rand(b, generator=gen) * 0.5,
+              torch.randint(0, 4, (b,), dtype=torch.int32, generator=gen))
+             for _ in range(steps)]
+    states = []
+    for dev in (device, torch.device("cpu")):
+        replay = tfast.ReplayBits([x.to(dev) for x in bits])
+        state = ttrain.init_train_state(config, replay)
+        state, _ = ttrain.train_chunk(
+            config, state, replay,
+            tabf.ReplayDraws([(u.to(dev), a.to(dev)) for u, a in draws]))
+        states.append(state)
+    card, cpu = states
+    for name in ("key_lo", "key_hi", "dropped"):
+        if not torch.equal(getattr(card.table, name).cpu(),
+                           getattr(cpu.table, name)):
+            fail(f"narrow legacy trainer: {name}, card != CPU")
+    for name in ("boards", "score", "episode_steps", "prev_max",
+                 "consec_action", "consec_count"):
+        if not torch.equal(getattr(card.env_state, name).cpu(),
+                           getattr(cpu.env_state, name)):
+            fail(f"narrow legacy trainer: {name}, card != CPU")
+    for name in ("episodes_done", "env_steps", "best_tile", "action_counts"):
+        if not torch.equal(getattr(card, name).cpu(), getattr(cpu, name)):
+            fail(f"narrow legacy trainer: {name}, card != CPU")
+    q_k, q_c = card.table.q.cpu(), cpu.table.q
+    q_err = float(((q_k - q_c).abs() / q_c.abs().clamp_min(1)).max())
+    q_words = int((q_k.view(torch.int32) != q_c.view(torch.int32)).sum())
+    if not q_err <= Q_RTOL or not torch.isfinite(q_k).all():
+        fail(f"narrow legacy trainer: Q card vs CPU {q_err:.3e} > {Q_RTOL}")
+    print(f"phase 17: narrow legacy trainer (B={b}, capacity 2**{log2}, "
+          f"{steps} steps), card == CPU on keys, boards, counters and "
+          f"dropped ({int(card.table.dropped)}); Q within {q_err:.3e} of "
+          f"max(1, |Q|) (tolerance {Q_RTOL}), {q_words} of {q_c.numel()} Q "
+          f"words differ; {int(card.episodes_done)} episodes, "
+          f"{int(card.table.occupied.sum())} states")
+
+
 def main():
     try:
         import torch
@@ -2013,7 +2358,7 @@ def main():
     launches = phase_main_path(sk, torch, device)
     main_row = phase_step_timing(sk, torch, device, REPO)[0]
     gather_err, scatter_err = phase_table_equal(tk, torch, device)
-    table_launches, _ = phase_tabular(sk, tk, torch, device)
+    table_launches, packed_rows = phase_tabular(sk, tk, torch, device)
     phase_narrow(sk, tk, torch, device)
     data = torch.zeros(((1 << TABLE_LOG2) // tk.BUCKET + 1, tk.ROW),
                        dtype=torch.int32, device=device)
@@ -2030,6 +2375,12 @@ def main():
     dqn_launches, _, _ = phase_dqn_path(sk, tk, torch, device)
     phase_dqn_narrow(torch, device)
     phase_dqn_benches(sk, tk, torch)
+    phase_fused_forward(torch, device)
+    phase_fused_learner(torch, device)
+    phase_dqn_narrow(torch, device, fused=True)
+    fused_launches = phase_fused_train(sk, tk, torch, device)
+    legacy_launches = phase_legacy(sk, tk, torch, device, packed_rows)
+    phase_legacy_narrow(torch, device)
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -2050,7 +2401,8 @@ def main():
             "route": "cuda",
             "source": "tpu2048_torch/csrc/step_kernel.cu",
             "replaces": "tpu2048/ops/pallas_step.py:308",
-            "launches": launches + dqn_launches,
+            "launches": launches + dqn_launches + fused_launches
+            + legacy_launches,
             "max_abs_err": max_err,
             "ms": main_row["ms"],
             "graph_ms": main_row["graph_ms"],

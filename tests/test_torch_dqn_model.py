@@ -141,8 +141,3 @@ def test_float32_model_turns_tf32_off():
     tdqn.create_model(DQNConfig(bf16=False, **NARROW), "cpu")
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
-
-
-def test_fused_conv_is_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        tdqn.create_model(DQNConfig(fused_conv=True, **NARROW), "cpu")

@@ -36,6 +36,7 @@ import torch
 from test_torch_dqn_agent import carry, tie_free
 from test_torch_fast_env import endgame_boards
 from test_torch_tabular import to_torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tpu2048.agents import dqn as jdqn
 from tpu2048.env import EnvConfig as JaxEnvConfig
 from tpu2048.ops import board as jboard
@@ -381,10 +382,7 @@ def test_cli_warm_start_and_stop_at_tile(tmp_path, capsys):
                                    ["--model-parallel", "2"],
                                    ["--coordinator", "localhost:1234"],
                                    ["--num-processes", "2"],
-                                   ["--process-id", "0"],
-                                   ["--debug-csv", "x.csv"],
-                                   ["--plot-every", "5"],
-                                   ["--watchdog", "10"]])
+                                   ["--process-id", "0"]])
 def test_cli_train_dqn_refuses_what_is_not_ported(flags, capsys):
     assert main(["train", "dqn", "--cpu", *flags]) == 2
     assert "not yet ported" in capsys.readouterr().err

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tpu2048.agents.dqn import DQNConfig as JaxDQNConfig
 from tpu2048.env import EnvConfig as JaxEnvConfig
 from tpu2048.env import fast as jfast

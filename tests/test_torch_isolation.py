@@ -31,6 +31,8 @@ def test_importing_the_port_loads_no_jax_and_no_tpu2048():
         "tpu2048_torch.env.fast", "tpu2048_torch.replay.buffer",
         "tpu2048_torch.agents.dqn", "tpu2048_torch.training.dqn",
         "tpu2048_torch.checkpoint.ckpt", "tpu2048_torch.models.dqn",
+        "tpu2048_torch.metrics.analyze", "tpu2048_torch.metrics.profiling",
+        "tpu2048_torch.utils.watchdog", "tpu2048_torch.utils.debug",
     } <= set(modules)
     code = (
         "import importlib, sys\n"

@@ -204,10 +204,16 @@ def test_cli_train_save_and_eval_on_cpu(tmp_path):
     assert summary["games"] == 8 and summary["score_mean"] > 0
 
 
-@pytest.mark.parametrize("flags", [["--engine", "lax"],
-                                   ["--table-backend", "legacy"],
-                                   ["--plot-every", "5"],
-                                   ["--watchdog", "10"]])
+@pytest.mark.parametrize("flags", [["--engine", "lax"]])
 def test_cli_train_refuses_what_is_not_ported(flags, capsys):
     assert main(["train", "tabular", "--cpu", *flags]) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("backend", ["xla", "interpret"])
+def test_cli_train_refuses_the_jax_table_backends(backend, capsys):
+    """JAX's plain table and its interpreted kernels have no counterpart on
+    the card: exit 2 before any training."""
+    assert main(["train", "tabular", "--cpu", "--table-backend",
+                 backend]) == 2
+    assert f"{backend!r} names a JAX backend" in capsys.readouterr().err

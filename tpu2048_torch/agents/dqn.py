@@ -37,7 +37,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tpu2048_torch.agents.tabular_fast import _first_true
+from tpu2048_torch.agents.tabular import _first_true
 from tpu2048_torch.models import dqn as dqn_model
 from tpu2048_torch.replay import buffer as replaylib
 
@@ -71,7 +71,7 @@ class DQNConfig:
     dropout: float = 0.5
     num_blocks: int = 3
     bf16: bool = True
-    fused_conv: bool = False  # single-4x4-conv fusion; not yet ported
+    fused_conv: bool = False  # one 4x4 conv a block (models/dqn.py)
 
 
 @dataclasses.dataclass

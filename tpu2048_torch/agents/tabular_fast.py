@@ -30,6 +30,7 @@ from typing import Iterable, Tuple
 import torch
 
 from tpu2048_torch.agents import tabular as tab
+from tpu2048_torch.agents.tabular import _first_true, one_hot
 from tpu2048_torch.ops import table_kernel as tk
 
 if tk.BUCKET != tab.PROBES:
@@ -126,16 +127,6 @@ class ReplayDraws:
                 f"{random_action.dtype}, expected ({batch},) float32 / "
                 f"({batch},) int32")
         return explore_u, random_action
-
-
-def one_hot(x: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
-    """``(..., n)`` one-hot of int ``x`` (all zero outside ``[0, n)``)."""
-    return (x.unsqueeze(-1) == torch.arange(n, device=x.device)).to(dtype)
-
-
-def _first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first True along dim 1 (0 where none), int64."""
-    return mask.to(torch.int8).argmax(1)
 
 
 def _probe_gathered(g, lo, hi):

@@ -151,19 +151,16 @@ def tabular_main(batch: int = 4096, device: Optional[str] = None) -> dict:
     return row
 
 
-def learner_main(batch: int = 64, updates: int = 200,
-                 device: Optional[str] = None, agent=None) -> dict:
-    """DQN learner updates/s: ``updates`` warm updates, then ``updates``
-    timed ones, each a sample from a 4096-slot buffer holding 1,024 random
-    transitions and one :func:`tpu2048_torch.agents.dqn.train_step` (target
-    forward, train forward and backward, Adam) of the network of ``agent``
-    (default: the reference's, full width, bf16). Returns the printed
-    row."""
+def learner_update(acfg, batch: int, device: torch.device):
+    """The learner that :func:`learner_main` times: a train state of
+    ``acfg``'s network (seed 0) and a 4096-slot buffer holding 1,024
+    random transitions. Returns ``(state, update)``; each ``update()`` draws
+    a batch of ``batch`` and runs one
+    :func:`tpu2048_torch.agents.dqn.train_step`, returning the loss (a
+    device tensor)."""
     from tpu2048_torch.agents import dqn as dqnlib
     from tpu2048_torch.replay import buffer as replaylib
 
-    device = resolve_device(device)
-    acfg = agent or dqnlib.DQNConfig(memory_size=4096)
     state = dqnlib.create_train_state(acfg, device, 0)
     gen = torch.Generator(device=device).manual_seed(1)
     n_fill = 1024
@@ -179,13 +176,33 @@ def learner_main(batch: int = 64, updates: int = 200,
         randint(12, (n_fill, 4, 4)),
         torch.ones(n_fill, dtype=torch.bool, device=device))
 
+    def update():
+        sample, _, _ = replaylib.replay_sample(
+            buf, batch, acfg.alpha, acfg.beta,
+            replaylib.sample_indices(buf, batch, acfg.alpha, gen))
+        return dqnlib.train_step(acfg, state, sample)[0]
+
+    return state, update
+
+
+def learner_main(batch: int = 64, updates: int = 200,
+                 device: Optional[str] = None, agent=None) -> dict:
+    """DQN learner updates/s: ``updates`` warm updates, then ``updates``
+    timed ones, each a sample from a 4096-slot buffer holding 1,024 random
+    transitions and one :func:`tpu2048_torch.agents.dqn.train_step` (target
+    forward, train forward and backward, Adam) of the network of ``agent``
+    (default: the reference's, full width, bf16). Returns the printed
+    row."""
+    from tpu2048_torch.agents import dqn as dqnlib
+
+    device = resolve_device(device)
+    acfg = agent or dqnlib.DQNConfig(memory_size=4096)
+    _, update = learner_update(acfg, batch, device)
+
     def run():
         loss = None
         for _ in range(updates):
-            sample, _, _ = replaylib.replay_sample(
-                buf, batch, acfg.alpha, acfg.beta,
-                replaylib.sample_indices(buf, batch, acfg.alpha, gen))
-            loss, _ = dqnlib.train_step(acfg, state, sample)
+            loss = update()
         return float(loss)
 
     run()

@@ -1,5 +1,5 @@
 """Command line, the port of :mod:`tpu2048.cli.main` (``train tabular``,
-``train dqn``, ``eval`` and ``bench`` so far).
+``train dqn``, ``eval``, ``bench``, ``plot`` and ``analyze`` so far).
 
 ``python -m tpu2048_torch train tabular --save q.npz`` trains the tabular
 Q-learner on the card and writes its table; ``python -m tpu2048_torch train
@@ -10,16 +10,20 @@ state there (``--resume`` continues it). ``python -m tpu2048_torch eval
 greedy games, ``--policy random`` (the default) random-legal ones on the
 rollout kernel, and prints ``EvalResult.summary()`` as JSON; ``python -m
 tpu2048_torch bench [--tabular | --learner | --train-loop]`` prints one
-JSON line of throughput (:mod:`tpu2048_torch.bench`). ``--cpu`` runs on the
-CPU instead. Flag names and defaults are the JAX CLI's; checkpoints are the
-port's own torch files (:mod:`tpu2048_torch.checkpoint.ckpt`), and a
-params ``.npz`` (:mod:`tpu2048_torch.checkpoint.params`) carries weights
-from the JAX package. Flags of parts not yet ported exit with code 2.
+JSON line of throughput (:mod:`tpu2048_torch.bench`). ``plot --log
+m.jsonl --out m.png`` draws the training plot and ``analyze --log m.jsonl``
+prints the run's milestones. ``--cpu``, before or after the subcommand,
+runs on the CPU instead. Flag names and defaults are the JAX CLI's;
+checkpoints are the port's own torch files
+(:mod:`tpu2048_torch.checkpoint.ckpt`), and a params ``.npz``
+(:mod:`tpu2048_torch.checkpoint.params`) carries weights from the JAX
+package. Flags of parts not yet ported exit with code 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
@@ -28,6 +32,48 @@ import sys
 def _not_ported(what: str) -> int:
     print(f"{what} is not yet ported", file=sys.stderr)
     return 2
+
+
+def _no_matplotlib(what: str) -> int:
+    """Exit code 2 with a message naming the package when matplotlib is
+    absent, else 0: checked before any training starts."""
+    if importlib.util.find_spec("matplotlib") is not None:
+        return 0
+    print(f"{what} needs the matplotlib package, which is not installed",
+          file=sys.stderr)
+    return 2
+
+
+def _plot_every(args, log_fn):
+    """``log_fn`` extended, under ``--plot-every N``, to redraw
+    ``<log>.png`` from the whole JSONL file (a resumed run's history
+    included) each time N more episodes have ended. Without ``--log`` the
+    flag is ignored with a warning, as the JAX CLI does."""
+    if not args.plot_every:
+        return log_fn
+    if not args.log:
+        print("--plot-every requires --log (plots render from the JSONL "
+              "rows); ignoring", file=sys.stderr)
+        return log_fn
+    from tpu2048_torch.metrics.logging import plot_from_jsonl
+
+    out_png = os.path.splitext(args.log)[0] + ".png"
+    last_plot = [0]
+
+    def plotting_log_fn(row):
+        log_fn(row)
+        if row.get("episodes", 0) >= last_plot[0] + args.plot_every:
+            last_plot[0] = row["episodes"]
+            plot_from_jsonl(args.log, out_png)
+
+    return plotting_log_fn
+
+
+def _plot_refusal(args) -> int:
+    """Exit 2 when ``--plot-every`` would draw and matplotlib is absent."""
+    if args.plot_every and args.log:
+        return _no_matplotlib("--plot-every")
+    return 0
 
 
 def _save_run_config(args, directory: str) -> None:
@@ -70,20 +116,17 @@ def _load_run_config(args, directory: str):
 def cmd_train(args) -> int:
     if args.engine == "lax":
         return _not_ported("--engine lax")
-    if args.table_backend != "auto":
-        return _not_ported(f"--table-backend {args.table_backend}")
-    if args.plot_every:
-        return _not_ported("--plot-every")
-    if args.watchdog:
-        return _not_ported("--watchdog")
+    rc = _plot_refusal(args)
+    if rc:
+        return rc
 
     from tpu2048_torch.agents.tabular import TabularConfig
     from tpu2048_torch.env.env import EnvConfig
     from tpu2048_torch.metrics.logging import JSONLLogger
-    from tpu2048_torch.training.tabular import TabularTrainConfig, train
+    from tpu2048_torch.training.tabular import (TabularTrainConfig,
+                                                resolve_table_backend, train)
     from tpu2048_torch.utils.device import resolve_device
 
-    device = resolve_device("cpu" if args.cpu else None)
     config = TabularTrainConfig(
         agent=TabularConfig(
             learning_rate=args.alpha,
@@ -98,11 +141,20 @@ def cmd_train(args) -> int:
         total_episodes=args.episodes,
         steps_per_chunk=args.steps_per_chunk,
         engine=args.engine,
+        table_backend=args.table_backend,
+        watchdog_timeout=args.watchdog,
         seed=args.seed,
     )
+    try:
+        resolve_table_backend(config)
+    except ValueError as e:  # xla and interpret: JAX's backends
+        print(f"--table-backend: {e}", file=sys.stderr)
+        return 2
+    device = resolve_device("cpu" if args.cpu else None)
     logger = JSONLLogger(args.log)
     try:
-        train(config, device, log_fn=logger.log, save_path=args.save)
+        train(config, device, log_fn=_plot_every(args, logger.log),
+              save_path=args.save)
     finally:
         logger.close()
     return 0
@@ -118,14 +170,11 @@ def _dqn_refusal(args) -> int:
         ("--coordinator", args.coordinator),
         ("--num-processes", args.num_processes is not None),
         ("--process-id", args.process_id is not None),
-        ("--debug-csv", args.debug_csv),
-        ("--plot-every", args.plot_every),
-        ("--watchdog", args.watchdog),
     )
     for what, on in refused:
         if on:
             return _not_ported(what)
-    return 0
+    return _plot_refusal(args)
 
 
 def _dqn_config(args):
@@ -164,6 +213,8 @@ def _dqn_config(args):
         rollback_block=args.rollback_block,
         rollback_drop=args.rollback_drop,
         prune_on_resume=args.prune_on_resume,
+        trace_env0=bool(args.debug_csv),
+        watchdog_timeout=args.watchdog,
         stop_at_tile=args.stop_at_tile,
         seed=args.seed,
     )
@@ -174,7 +225,7 @@ def cmd_train_dqn(args) -> int:
     if rc:
         return rc
     from tpu2048_torch.checkpoint.ckpt import CheckpointManager
-    from tpu2048_torch.metrics.logging import JSONLLogger
+    from tpu2048_torch.metrics.logging import CSVLogger, JSONLLogger
     from tpu2048_torch.training.dqn import (init_loop_state, train,
                                             warm_start_state)
     from tpu2048_torch.utils.device import resolve_device
@@ -204,11 +255,22 @@ def cmd_train_dqn(args) -> int:
             print(f"error: --warm-start: {e}", file=sys.stderr)
             return 2
     logger = JSONLLogger(args.log)
+    trace_logger = None
+    if args.debug_csv:
+        # The reference driver's header (mainDQL:137).
+        trace_logger = CSVLogger(
+            args.debug_csv,
+            ["Episode", "Action", "Legal Moves", "Reward", "Total Reward",
+             "State", "Done", "Ho salvato", "Mosse"])
     try:
-        train(config, args.episodes, device, log_fn=logger.log, state=state,
-              ckpt_manager=mgr, resume=args.resume)
+        train(config, args.episodes, device,
+              log_fn=_plot_every(args, logger.log), state=state,
+              ckpt_manager=mgr, resume=args.resume,
+              trace_fn=trace_logger.log if trace_logger else None)
     finally:
         logger.close()
+        if trace_logger:
+            trace_logger.close()
     return 0
 
 
@@ -278,6 +340,24 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_plot(args) -> int:
+    rc = _no_matplotlib("plot")
+    if rc:
+        return rc
+    from tpu2048_torch.metrics.logging import plot_from_jsonl
+
+    plot_from_jsonl(args.log, args.out)
+    print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_analyze(args) -> int:
+    from tpu2048_torch.metrics.analyze import main as analyze_main
+
+    analyze_main(args.log)
+    return 0
+
+
 def cmd_bench(args) -> int:
     if args.scale:
         return _not_ported("--scale")
@@ -315,16 +395,22 @@ def _add_tabular_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--table-backend",
                    choices=["auto", "pallas", "interpret", "xla", "legacy"],
                    default="auto",
-                   help="only auto (the packed table on its kernels) is "
-                        "ported")
+                   help="Q-table backend: the packed table on its bucket "
+                        "kernels (auto, or its alias pallas) or the "
+                        "two-array table (legacy); xla and interpret name "
+                        "JAX backends and exit 2")
     p.add_argument("--steps-per-chunk", type=int, default=256)
     p.add_argument("--plot-every", type=int, default=0,
-                   help="not yet ported")
+                   help="redraw the 3-panel training plot <log>.png every "
+                        "N episodes (reference: 10, mainDQL:270; needs "
+                        "--log; 0 = off)")
     p.add_argument("--save", type=str, default=None,
                    help="write the trained Q-table as .npz")
     p.add_argument("--log", type=str, default=None, help="JSONL metrics path")
     p.add_argument("--watchdog", type=float, default=0.0,
-                   help="not yet ported")
+                   help="exit 70 if no training chunk completes within N "
+                        "seconds (a hang becomes a restartable crash; "
+                        "0 = off)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the card")
@@ -411,14 +497,18 @@ def _add_dqn_args(p: argparse.ArgumentParser) -> None:
                    help="avg final-max-tile drop vs the previous block "
                         "that triggers a restore (mainDQL:287)")
     p.add_argument("--plot-every", type=int, default=0,
-                   help="not yet ported")
+                   help="redraw the 3-panel training plot <log>.png every "
+                        "N episodes (reference: 10, mainDQL:270; needs "
+                        "--log; 0 = off)")
     p.add_argument("--stop-at-tile", type=int, default=0,
                    help="stop the run once best_tile reaches this value "
                         "(0 = full episode budget)")
     p.add_argument("--debug-csv", type=str, default=None,
-                   help="not yet ported")
+                   help="per-step CSV trace of env 0 (reference debug log)")
     p.add_argument("--watchdog", type=float, default=0.0,
-                   help="not yet ported")
+                   help="exit 70 if no training chunk completes within N "
+                        "seconds (a hang becomes a restartable crash; pair "
+                        "with --resume supervision; 0 = off)")
     p.add_argument("--log", type=str, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true",
@@ -431,6 +521,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="2048 RL framework, PyTorch/CUDA port of tpu2048",
         allow_abbrev=False,
     )
+    # The JAX CLI takes --cpu here, before the subcommand; the port takes
+    # it after the subcommand too (a subparser's default would overwrite a
+    # shared dest, hence its own).
+    p.add_argument("--cpu", dest="cpu_first", action="store_true",
+                   help="run on the CPU instead of the card")
     sub = p.add_subparsers(dest="command", required=True)
 
     pt = sub.add_parser("train", help="train an agent", allow_abbrev=False)
@@ -501,6 +596,19 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     pb.set_defaults(fn=cmd_bench)
+
+    pp = sub.add_parser("plot", help="render training plots from JSONL logs",
+                        allow_abbrev=False)
+    pp.add_argument("--log", type=str, required=True)
+    pp.add_argument("--out", type=str, required=True)
+    pp.set_defaults(fn=cmd_plot)
+
+    pa = sub.add_parser("analyze",
+                        help="milestone timings + win stats from a "
+                             "metrics.jsonl (reference-comparable numbers)",
+                        allow_abbrev=False)
+    pa.add_argument("--log", type=str, required=True)
+    pa.set_defaults(fn=cmd_analyze)
     return p
 
 
@@ -509,6 +617,7 @@ def main(argv=None) -> int:
     # The consumed argv, so that "did the user pass this flag" checks work
     # for programmatic main([...]) calls too.
     args._argv = list(sys.argv[1:] if argv is None else argv)
+    args.cpu = getattr(args, "cpu", False) or args.cpu_first
     return args.fn(args)
 
 

@@ -1,1 +1,2 @@
-"""Training metrics: JSONL rows."""
+"""Training metrics: JSONL rows and CSV traces, plots, run analysis and
+profiling helpers."""

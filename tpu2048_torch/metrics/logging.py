@@ -1,16 +1,20 @@
-"""JSONL metric rows, the port of :mod:`tpu2048.metrics.logging`
-(``JSONLLogger`` and ``read_jsonl``).
+"""Metric logs and plots, the port of :mod:`tpu2048.metrics.logging`.
 
-The rows are the JAX package's, so its ``metrics/analyze.py`` reads the
-port's logs. The port runs in one process, so every logger writes (the JAX
-logger writes on host 0 only).
+Training writes JSON rows (:class:`JSONLLogger`); ``train dqn --debug-csv``
+writes the reference's per-step CSV (:class:`CSVLogger`); the 3-panel
+training plot is drawn from the JSON rows (:func:`plot_training`,
+:func:`plot_from_jsonl`), with matplotlib imported only there, on its Agg
+backend. The rows are the JAX package's, so each package reads the other's
+logs. The port runs in one process, so every logger writes (the JAX
+loggers write on host 0 only).
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
-from typing import List, Optional
+from typing import Iterable, List, Optional
 
 
 class JSONLLogger:
@@ -51,3 +55,53 @@ def read_jsonl(path: str) -> List[dict]:
             if line:
                 rows.append(json.loads(line))
     return rows
+
+
+class CSVLogger:
+    """Reference-style CSV appender (Agent/main.py:59-62; mainDQL:22-25):
+    the header once, when the file is new."""
+
+    def __init__(self, path: str, header: List[str]):
+        self.path = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        new = not os.path.exists(path)
+        self._fh = open(path, "a", newline="", buffering=1)
+        self._writer = csv.writer(self._fh)
+        if new:
+            self._writer.writerow(header)
+
+    def log(self, row: Iterable) -> None:
+        self._writer.writerow(list(row))
+
+    def close(self) -> None:
+        self._fh.close()
+
+
+def plot_training(
+    rows: List[dict],
+    out_path: str,
+    keys=("best_tile", "mean_score", "loss"),
+    titles=("Max Tile per Game", "Score per Game", "Loss per Game"),
+) -> None:
+    """3-panel training plot (the reference's ``plot_results``,
+    mainDQL:27-53), drawn from JSON rows into a PNG."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    x = [r.get("episodes", i) for i, r in enumerate(rows)]
+    fig, axes = plt.subplots(len(keys), 1, figsize=(12, 12))
+    for ax, key, title in zip(axes, keys, titles):
+        ax.plot(x, [r.get(key, float("nan")) for r in rows])
+        ax.set_title(title)
+        ax.set_xlabel("Episodes")
+        ax.set_ylabel(key)
+    fig.subplots_adjust(hspace=0.5)
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    fig.savefig(out_path)
+    plt.close(fig)
+
+
+def plot_from_jsonl(jsonl_path: str, out_path: str) -> None:
+    plot_training(read_jsonl(jsonl_path), out_path)

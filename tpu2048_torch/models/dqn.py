@@ -3,7 +3,10 @@
 Three blocks of four parallel convolutions (k = 1..4, ``features/4`` filters
 each, SAME padding, concatenated, ReLU), then Flatten -> Dense(hidden, ReLU)
 -> Dropout -> Dense(4). The input is ``(B, 4, 4)`` int8 exponent boards,
-one-hot encoded inside the module.
+one-hot encoded inside the module. With ``fused=True`` a block keeps its
+four kernels as parameters but computes them as one 4x4 convolution, the
+smaller kernels zero-embedded at their SAME offsets, as the JAX module's
+``fused=True`` does.
 
 The module keeps the JAX package's numerics: the convolutions and the
 hidden layer take their inputs and weights in ``dtype`` (bf16 by default)
@@ -34,26 +37,49 @@ NUM_TILE_CHANNELS = 16  # one-hot depth, Dqn8:274
 KERNEL_SIZES = (1, 2, 3, 4)
 # TF/XLA SAME padding on a size-4 axis: (before, after) for each kernel size.
 SAME_PADS = {1: (0, 0), 2: (0, 1), 3: (1, 1), 4: (1, 2)}
+# The fused block's 4x4 frame: each kernel's place in it as F.pad's
+# (left, right, top, bottom), tap [1, 1] for k=1, [1:3, 1:3] for k=2,
+# [0:3, 0:3] for k=3 (tpu2048/models/dqn.py:84-88); k=4 fills the frame,
+# and the input is padded by k=4's SAME pads on each side.
+FUSED_FRAME = {1: (1, 2, 1, 2), 2: (1, 1, 1, 1), 3: (0, 1, 0, 1)}
 # flax's lecun_normal draws a normal truncated to [-2, 2] and divides by its
 # standard deviation, this constant, so the weights have variance 1/fan_in.
 _TRUNC_STD = 0.87962566103423978
 
 
 class MultiKernelConvBlock(nn.Module):
-    """Four parallel convs (k = 1..4), concat, ReLU (``fused=False`` path of
-    ``tpu2048.models.dqn.MultiKernelConvBlock``)."""
+    """Four parallel convs (k = 1..4), concat, ReLU
+    (``tpu2048.models.dqn.MultiKernelConvBlock``).
+
+    The parameters are the four logical kernels either way. ``fused=False``
+    runs four convolutions, each on its SAME-padded input; ``fused=True``
+    builds one OIHW 4x4 weight in each forward (each kernel padded into its
+    place in the frame, the four concatenated along O, then cast to
+    ``dtype``) and runs one convolution; autograd carries the gradient back
+    into the four kernels."""
 
     def __init__(self, in_channels: int, features: int = 2048,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
         super().__init__()
         d = features // 4
         self.dtype = dtype
+        self.fused = fused
         self.convs = nn.ModuleList(
             nn.Conv2d(in_channels, d, k) for k in KERNEL_SIZES
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, C, 4, 4)`` NCHW in ``dtype`` -> ``(B, features, 4, 4)``."""
+        if self.fused:
+            weight = torch.cat([
+                F.pad(conv.weight, FUSED_FRAME[k]) if k in FUSED_FRAME
+                else conv.weight
+                for k, conv in zip(KERNEL_SIZES, self.convs)])
+            bias = torch.cat([conv.bias for conv in self.convs])
+            before, after = SAME_PADS[4]
+            y = F.conv2d(F.pad(x, (before, after, before, after)),
+                         weight.to(self.dtype))
+            return F.relu(y + bias.to(self.dtype)[:, None, None])
         outs = []
         for k, conv in zip(KERNEL_SIZES, self.convs):
             before, after = SAME_PADS[k]
@@ -68,12 +94,13 @@ class DQNCNN(nn.Module):
 
     def __init__(self, action_space: int = 4, features: int = 2048,
                  hidden: int = 1024, dropout_rate: float = 0.5,
-                 num_blocks: int = 3, dtype: torch.dtype = torch.bfloat16):
+                 num_blocks: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 fused: bool = False):
         super().__init__()
         self.dtype = dtype
         self.blocks = nn.ModuleList(
             MultiKernelConvBlock(NUM_TILE_CHANNELS if i == 0 else features,
-                                 features, dtype)
+                                 features, dtype, fused)
             for i in range(num_blocks)
         )
         self.dense = nn.Linear(16 * features, hidden)
@@ -112,9 +139,9 @@ def create_model(config, device=None) -> DQNCNN:
     and ``torch.backends.cuda.matmul.allow_tf32`` to False, process-wide:
     cuDNN would otherwise run float32 convolutions in TF32, which keeps about
     three decimal digits where the JAX reference keeps float32.
+    A config without ``fused_conv`` builds the four-convolution blocks, as
+    the JAX package's ``create_model`` does.
     """
-    if getattr(config, "fused_conv", False):
-        raise NotImplementedError("fused_conv=True is not yet ported")
     dtype = torch.bfloat16 if config.bf16 else torch.float32
     if dtype == torch.float32:
         torch.backends.cudnn.allow_tf32 = False
@@ -127,6 +154,7 @@ def create_model(config, device=None) -> DQNCNN:
             dropout_rate=config.dropout,
             num_blocks=config.num_blocks,
             dtype=dtype,
+            fused=getattr(config, "fused_conv", False),
         )
 
 

@@ -22,6 +22,12 @@ Periodic operations keyed on episodes run between chunks, as in the JAX
 loop: target sync every 20 episodes, the prune of the 10 worst buffered
 episodes every 50, a full checkpoint every 100, a named checkpoint at each
 new best tile >= 512, and the optional rollback-on-regression.
+
+With ``trace_env0`` each vector step adds env 0's row of the reference's
+per-step debug CSV (mainDQL:22-25, 234) to a list on the device; the host
+reads the chunk's rows once, after the chunk, and hands each to
+``trace_fn``. With ``watchdog_timeout`` a watchdog exits the process with
+code 70 when no chunk (or checkpoint) ends in that many seconds.
 """
 
 from __future__ import annotations
@@ -36,12 +42,13 @@ import torch
 from torch.profiler import record_function
 
 from tpu2048_torch.agents import dqn as dqnlib
-from tpu2048_torch.agents.tabular_fast import one_hot
+from tpu2048_torch.agents.tabular import one_hot
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SIMPLE, EnvConfig
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops.step_kernel import from_cell_major
 from tpu2048_torch.replay import buffer as replaylib
+from tpu2048_torch.utils.watchdog import STARTUP_FLOOR, Watchdog
 
 # Rollback-on-regression restores at most this many blocks in a row
 # (mainDQL:292).
@@ -51,8 +58,7 @@ ROLLBACK_MAX_CONSECUTIVE = 2
 @dataclasses.dataclass(frozen=True)
 class DQNTrainConfig:
     """``tpu2048.training.dqn.DQNTrainConfig`` without its TPU and
-    multi-device knobs (``fast_backend``, ``replay_shards``), the debug
-    trace and the watchdog."""
+    multi-device knobs (``fast_backend``, ``replay_shards``)."""
 
     agent: dqnlib.DQNConfig = dqnlib.DQNConfig()
     env: EnvConfig = EnvConfig(reward=SIMPLE, terminal_bonus=True)
@@ -77,6 +83,8 @@ class DQNTrainConfig:
     rollback_drop: float = 50.0
     rollback_store: str = "memory"  # a device-resident copy, or "disk"
     prune_on_resume: int = 0  # drop N worst episodes after a restore
+    trace_env0: bool = False  # env 0's per-step debug rows (trace_fn)
+    watchdog_timeout: float = 0.0  # exit 70 after this long without a chunk
     stop_at_tile: int = 0  # stop once best_tile reaches it (0 = off)
     seed: int = 0
 
@@ -270,9 +278,33 @@ def warm_start_state(state: DQNLoopState, directory: str,
     return state
 
 
-def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState) -> float:
+def _trace_row(actions, legal, ts, save, boards) -> torch.Tensor:
+    """Env 0's row of the debug trace as one float64 device tensor (every
+    value exact): the action, the 4 legal flags, the reward, the episode's
+    return, done, saved, the episode's steps and the 16 cells."""
+    return torch.cat([x.to(torch.float64) for x in (
+        actions[:1], legal[0], ts.reward[:1], ts.episode_return[:1],
+        ts.done[:1], save[:1], ts.episode_steps[:1], boards[0].reshape(16))])
+
+
+def _trace_rows(rows, episode: int, trace_fn) -> int:
+    """Hand a chunk's trace rows to ``trace_fn`` in the JAX trainer's
+    columns (episode, action, legal moves, reward, total reward, state,
+    done, saved, step) after one read; returns env 0's episode count."""
+    for r in torch.stack(rows).cpu().tolist():
+        done = bool(r[7])
+        trace_fn([episode, int(r[0]), [a for a in range(4) if r[1 + a]],
+                  r[5], r[6], [int(c) for c in r[10:26]], done, bool(r[8]),
+                  int(r[9])])
+        episode += done
+    return episode
+
+
+def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
+                 trace: Optional[list] = None) -> float:
     """One vector step with its learner updates, in place; returns the
-    step's epsilon."""
+    step's epsilon. With a ``trace`` list, env 0's row is appended to it
+    (on the device)."""
     acfg = config.agent
     b = config.num_envs
     with record_function("actor"):
@@ -291,6 +323,9 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState) -> float:
                                            ts.done, acfg.dedup)
         replaylib.replay_add(st.buffer, boards, actions, ts.reward, ts.done,
                              next_boards, save)
+    if trace is not None:
+        trace.append(_trace_row(actions, st.env_state.legal, ts, save,
+                                boards))
     st.agent.step_counter += b  # the epsilon counter counts env steps
     # LR hook: x0.98 once per episode that ended with a >= 1024 pre-step
     # board (remember() checks np.max(state), Dqn8:284).
@@ -354,20 +389,23 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState) -> float:
     return eps
 
 
-def train_chunk(config: DQNTrainConfig, state: DQNLoopState):
+def train_chunk(config: DQNTrainConfig, state: DQNLoopState,
+                trace: Optional[list] = None):
     """``steps_per_chunk`` vector steps with interleaved learning, in place.
-    Returns the state and the last step's epsilon (a float32 value)."""
+    Returns the state and the last step's epsilon (a float32 value). With a
+    ``trace`` list, each step appends env 0's debug row to it."""
     fcfg = fast_config(config)
     eps = None
     for _ in range(config.steps_per_chunk):
-        eps = _vector_step(config, fcfg, state)
+        eps = _vector_step(config, fcfg, state, trace)
     return state, eps
 
 
 def train(config: DQNTrainConfig, total_episodes: int, device=None,
           log_fn: Optional[Callable[[dict], None]] = None,
           state: Optional[DQNLoopState] = None, ckpt_manager=None,
-          resume: bool = False) -> List[dict]:
+          resume: bool = False,
+          trace_fn: Optional[Callable[[list], None]] = None) -> List[dict]:
     """Host loop with the reference's periodic-op cadence; returns the
     per-chunk rows (the JAX loop's keys), also passed to ``log_fn``.
 
@@ -377,21 +415,39 @@ def train(config: DQNTrainConfig, total_episodes: int, device=None,
     (the reference's resume path, mainDQL:124-139), saves every
     ``checkpoint_episodes``, saves a named checkpoint at each new best tile
     >= 512 (mainDQL:254-262), keeps the rollback's block checkpoint when
-    ``rollback_store == "disk"``, and saves once more at the end.
+    ``rollback_store == "disk"``, and saves once more at the end. With
+    ``config.trace_env0`` each of env 0's steps goes to ``trace_fn`` as a
+    row of the reference's debug CSV.
     """
-    if state is None:
-        state = init_loop_state(config, device)
-    if ckpt_manager is not None and resume:
-        latest = ckpt_manager.latest_step()
-        if latest is not None:
-            ckpt_manager.restore(latest, state)
-            if config.prune_on_resume > 0:
-                state.buffer = replaylib.prune_low_score_episodes(
-                    state.buffer, config.prune_on_resume)
-    return _train_loop(config, total_episodes, state, log_fn, ckpt_manager)
+    watchdog = None
+    if config.watchdog_timeout > 0:
+        # Started before the restore: the start-up floor covers it.
+        watchdog = Watchdog(config.watchdog_timeout, label="dqn",
+                            startup_floor=STARTUP_FLOOR).start()
+    try:
+        if state is None:
+            state = init_loop_state(config, device)
+        if ckpt_manager is not None and resume:
+            latest = ckpt_manager.latest_step()
+            if latest is not None:
+                ckpt_manager.restore(latest, state)
+                if config.prune_on_resume > 0:
+                    state.buffer = replaylib.prune_low_score_episodes(
+                        state.buffer, config.prune_on_resume)
+        return _train_loop(config, total_episodes, state, log_fn,
+                           ckpt_manager, trace_fn, watchdog)
+    finally:
+        # A caller that catches an error and goes on must not be killed by
+        # a watchdog left running.
+        if watchdog is not None:
+            watchdog.stop()
 
 
-def _train_loop(config, total_episodes, state, log_fn, ckpt_manager):
+def _train_loop(config, total_episodes, state, log_fn, ckpt_manager,
+                trace_fn, watchdog):
+    beat = watchdog.beat if watchdog is not None else (lambda: None)
+    tracing = config.trace_env0 and trace_fn is not None
+    env0_episode = 0
     logs: List[dict] = []
     start_ep = state.episodes_done
 
@@ -409,8 +465,12 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager):
                  restored=0, rollbacks=0, mem=None)
     use_mem = config.rollback_store == "memory"
     while state.episodes_done < total_episodes:
-        state, eps = train_chunk(config, state)
+        trace = [] if tracing else None
+        state, eps = train_chunk(config, state, trace)
         ep = state.episodes_done
+        beat()
+        if tracing:
+            env0_episode = _trace_rows(trace, env0_episode, trace_fn)
 
         if ep // config.target_sync_episodes > (
                 last_sync // config.target_sync_episodes):
@@ -425,11 +485,13 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager):
         # Milestone saves at the reference's 512/1024/2048 tiers.
         if best >= 512 and best > prev["best"] and ckpt_manager is not None:
             ckpt_manager.save_named(f"tile_{best}_ep{ep}", state)
+            beat()  # a save of the whole state is slow I/O, not a hang
         prev["best"] = max(prev["best"], best)
         if ep // config.checkpoint_episodes > (
                 last_ckpt // config.checkpoint_episodes):
             if ckpt_manager is not None:
                 ckpt_manager.save(ep, state)
+                beat()
             last_ckpt = ep
 
         # Rollback-on-regression (mainDQL:278-314).
@@ -471,6 +533,7 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager):
                 block["restored"] = 0
             block["ep"] = state.episodes_done
             block["tiles"] = float(state.sum_final_tile)
+            beat()  # the disk store's save or restore moves the state
 
         now = time.time()
         d_ep = max(ep - prev["ep"], 1)

@@ -1,22 +1,27 @@
 """Batched tabular Q-learning trainer, the port of
-:mod:`tpu2048.training.tabular` on the fast engine and the packed table.
+:mod:`tpu2048.training.tabular` on the fast engine.
 
-B envs step in lockstep; each step is one epsilon-greedy choice on a bucket
-gather, one env-step kernel launch (shaped or simple mode), one gather for
-the targets and one scatter of the merged updates into the table. Epsilon
-decays on the reference's per-episode schedule with "epoch" = completed
-episodes / B.
+B envs step in lockstep; each step is one epsilon-greedy choice, one
+env-step kernel launch (shaped or simple mode), the targets and the update
+of the table. On the packed table (``table_backend`` ``auto`` or its alias
+``pallas``) the choice is a bucket gather, the targets another, and the
+update one scatter of the merged bucket images; on the legacy two-array
+table (``legacy``) they are the ops of :mod:`tpu2048_torch.agents.tabular`.
+Epsilon decays on the reference's per-episode schedule with "epoch" =
+completed episodes / B.
 
-A chunk is a Python loop of ``steps_per_chunk`` steps that never waits for
-the device: the running sums stay on the device and the host reads them
-once a chunk.
+A chunk is a Python loop of ``steps_per_chunk`` steps. On the packed table
+it never waits for the device: the running sums stay on the device and the
+host reads them once a chunk. The legacy update reads the number of its
+ordered rounds once a step. With ``watchdog_timeout`` a watchdog exits the
+process with code 70 when no chunk ends in that many seconds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
 import torch
 
@@ -25,13 +30,13 @@ from tpu2048_torch.agents import tabular_fast as tabf
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SHAPED, EnvConfig
 from tpu2048_torch.ops.step_kernel import from_cell_major
+from tpu2048_torch.utils.watchdog import STARTUP_FLOOR, Watchdog
 
 
 @dataclasses.dataclass(frozen=True)
 class TabularTrainConfig:
-    """``tpu2048.training.tabular.TabularTrainConfig`` without its backend
-    choices (the port has the fast engine and the packed table only) and
-    the watchdog."""
+    """``tpu2048.training.tabular.TabularTrainConfig`` without its fast
+    engine's backend choice (the port runs the step kernel)."""
 
     agent: tab.TabularConfig = tab.TabularConfig()
     env: EnvConfig = EnvConfig(reward=SHAPED)
@@ -39,7 +44,28 @@ class TabularTrainConfig:
     total_episodes: int = 200_000  # the reference trained 200k games
     steps_per_chunk: int = 256
     engine: str = "auto"  # "auto" or "fast"; the lax engine is not ported
+    # "auto" (or "pallas"): the packed table on the bucket kernels;
+    # "legacy": the two-array table. JAX's "xla" and "interpret" name its
+    # backends and have no counterpart on the card.
+    table_backend: str = "auto"
+    watchdog_timeout: float = 0.0  # exit 70 after this long without a chunk
     seed: int = 0
+
+
+def resolve_table_backend(config: TabularTrainConfig) -> str:
+    """``"packed"`` or ``"legacy"``; raises ValueError for any other name,
+    JAX's ``"xla"`` and ``"interpret"`` included."""
+    tb = config.table_backend
+    if tb in ("auto", "pallas"):
+        return "packed"
+    if tb == "legacy":
+        return "legacy"
+    if tb in ("xla", "interpret"):
+        raise ValueError(
+            f"table_backend {tb!r} names a JAX backend; the port's plain "
+            "versions run only for CPU tensors: use auto (or pallas) or "
+            "legacy")
+    raise ValueError(f"unknown table_backend {tb!r}")
 
 
 def fast_config(config: TabularTrainConfig) -> fastlib.FastEnvConfig:
@@ -51,7 +77,7 @@ def fast_config(config: TabularTrainConfig) -> fastlib.FastEnvConfig:
 
 @dataclasses.dataclass
 class TabularTrainState:
-    table: tabf.PackedQTable
+    table: Union[tabf.PackedQTable, tab.QTable]
     env_state: fastlib.FastEnvState
     episodes_done: torch.Tensor  # () int32
     env_steps: torch.Tensor  # () int32
@@ -64,17 +90,19 @@ class TabularTrainState:
 
 
 def init_train_state(config: TabularTrainConfig, bits) -> TabularTrainState:
-    """Fresh envs from one draw of ``bits`` and an empty table, on the bit
-    source's device."""
+    """Fresh envs from one draw of ``bits`` and an empty table of the
+    configured backend, on the bit source's device."""
+    legacy = resolve_table_backend(config) == "legacy"
     env_state = fastlib.fast_reset(bits, config.batch_size,
                                    fast_config(config))
     device = env_state.boards.device
+    init = tab.qtable_init if legacy else tabf.packed_init
 
     def zero(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return TabularTrainState(
-        table=tabf.packed_init(config.agent.capacity_log2, device),
+        table=init(config.agent.capacity_log2, device),
         env_state=env_state,
         episodes_done=zero((), torch.int32),
         env_steps=zero((), torch.int32),
@@ -101,21 +129,32 @@ def train_chunk(config: TabularTrainConfig, state: TabularTrainState, bits,
     agent_cfg = config.agent
     b = config.batch_size
     fcfg = fast_config(config)
+    legacy = resolve_table_backend(config) == "legacy"
     st = state
     eps = None
     for _ in range(config.steps_per_chunk):
         epoch = st.episodes_done.to(torch.float32) / b
         eps = tab.epsilon_for_epoch(epoch, agent_cfg)
         boards = from_cell_major(st.env_state.boards)
-        actions, probe = tabf.fast_choose_actions_probed(
-            st.table, boards, eps, draws)
+        if legacy:
+            actions, probe = tab.choose_actions_probed(st.table, boards, eps,
+                                                       draws)
+        else:
+            actions, probe = tabf.fast_choose_actions_probed(
+                st.table, boards, eps, draws)
         env_state, ts = fastlib.fast_step(fcfg, st.env_state, bits, actions,
                                           need_obs=True)
-        targets = tabf.fast_targets(st.table, ts.reward,
-                                    from_cell_major(ts.obs), ts.done,
-                                    agent_cfg.discount)
-        table = tabf.fast_update(st.table, probe, actions, targets,
-                                 agent_cfg.learning_rate)
+        next_boards = from_cell_major(ts.obs)
+        if legacy:
+            targets = tab.q_learning_targets(st.table, ts.reward, next_boards,
+                                             ts.done, agent_cfg.discount)
+            table = tab.qtable_update(st.table, boards, actions, targets,
+                                      agent_cfg.learning_rate, probe=probe)
+        else:
+            targets = tabf.fast_targets(st.table, ts.reward, next_boards,
+                                        ts.done, agent_cfg.discount)
+            table = tabf.fast_update(st.table, probe, actions, targets,
+                                     agent_cfg.learning_rate)
         done_f = ts.done.to(torch.float32)
         st = TabularTrainState(
             table=table,
@@ -127,7 +166,7 @@ def train_chunk(config: TabularTrainConfig, state: TabularTrainState, bits,
                 ts.done, _episode_score(st, ts), 0.0).sum(),
             sum_length=st.sum_length + (ts.episode_steps * done_f).sum(),
             best_tile=torch.maximum(st.best_tile, ts.max_number.amax()),
-            action_counts=st.action_counts + tabf.one_hot(
+            action_counts=st.action_counts + tab.one_hot(
                 actions, 4, torch.int32).sum(0, dtype=torch.int32),
         )
     return st, eps
@@ -151,11 +190,28 @@ def train(config: TabularTrainConfig, device,
     """
     bits, draws = sources(config.seed, device)
     state = init_train_state(config, bits)
+    watchdog = None
+    if config.watchdog_timeout > 0:
+        watchdog = Watchdog(config.watchdog_timeout, label="tabular",
+                            startup_floor=STARTUP_FLOOR).start()
+    try:
+        return _train_loop(config, state, bits, draws, watchdog, log_fn,
+                           save_path)
+    finally:
+        # A caller that catches an error and goes on must not be killed by
+        # a watchdog left running.
+        if watchdog is not None:
+            watchdog.stop()
+
+
+def _train_loop(config, state, bits, draws, watchdog, log_fn, save_path):
     logs: List[dict] = []
     prev = dict(ep=0, ret=0.0, score=0.0, length=0.0, t=time.time())
     while int(state.episodes_done) < config.total_episodes:
         state, eps = train_chunk(config, state, bits, draws)
-        ep = int(state.episodes_done)
+        ep = int(state.episodes_done)  # waits for the chunk
+        if watchdog is not None:
+            watchdog.beat()
         now = time.time()
         d_ep = max(ep - prev["ep"], 1)
         row = {
@@ -179,5 +235,8 @@ def train(config: TabularTrainConfig, device,
         if log_fn:
             log_fn(row)
     if save_path:
-        tab.save_qtable(save_path, tabf.unpack_qtable(state.table))
+        table = state.table
+        if isinstance(table, tabf.PackedQTable):
+            table = tabf.unpack_qtable(table)
+        tab.save_qtable(save_path, table)
     return logs

@@ -1,1 +1,2 @@
-"""Device selection."""
+"""Shared utilities: device selection, the training watchdog and the
+numerical debug check."""
