@@ -148,8 +148,28 @@ can be timed in one run on one card.
     table kernel, ms a step beside phase 7's packed table; then a narrow
     legacy trainer on the card against the CPU on the same bits and draws:
     keys, boards, counters and ``dropped`` equal, Q within ``Q_RTOL``.
-18. One JSON line describing the four kernels (the step kernel's launches
-    counted over phases 4, 13, 16 and 17), then the result line.
+18. The classic op-by-op env and the lax engine (``tpu2048_torch.env.env``,
+    plain ops): ``step`` (``step_with_spawn`` and the auto-reset, through a
+    replay source) at B=4096 for 64 steps on the card against the CPU, on
+    spawn decisions and fresh boards drawn once on the CPU, in five modes
+    (simple, terminal bonus, ``quirk_compat``, shaped, shaped with
+    ``reset_shaping_on_reset``): integers equal, shaped rewards within
+    2e-6; the aten ops of a step; the production source's spawn
+    distribution on the card over 131,072 draws (chi-square at p = 0.001,
+    quirk clobber included); then through ``tpu2048_torch.cli.main``:
+    ``train tabular --engine lax`` at phase 7's defaults and cut (gathers =
+    2 x steps, scatters = steps, no step kernel), ``eval --policy random
+    --engine lax`` (512 games, its score mean against phase 11's within
+    four standard errors), ``eval --policy model --engine lax`` on phase
+    4's weights, ``train dqn --engine lax`` at the defaults cut to 8
+    episodes and its ``--resume``, ``demo --mode random`` and ``--mode
+    model`` on that run's weights, and a manual ``GameSession`` driven by
+    scripted keys; every lax path but the tabular one launches no kernel.
+    Each prints its times beside the fast engine's from the same call.
+
+Then one JSON line describing the four kernels (the step kernel's launches
+counted over phases 4, 13, 16 and 17, the table kernels' over phases 7
+and 18), and the result line.
 
 Phase 13's ``train dqn`` also writes env 0's ``--debug-csv`` (the
 reference's header, one row a vector step) under ``--watchdog``, and
@@ -437,6 +457,17 @@ def run_cli(cli_main, argv):
     return rc, json.loads(out.getvalue()) if rc == 0 else None
 
 
+def full_width_params(torch):
+    """Flax-named params of the full-width Q-network (features 2048,
+    hidden 1024, 3 blocks), initialised on the CPU from SEED."""
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.models import dqn as tdqn
+
+    model = tdqn.init_params(tdqn.create_model(DQNConfig(), "cpu"),
+                             torch.Generator().manual_seed(SEED))
+    return tdqn.to_flax_params(model)
+
+
 def phase_main_path(sk, torch, device):
     from tpu2048_torch.agents.dqn import DQNConfig
     from tpu2048_torch.checkpoint.params import save_params
@@ -447,10 +478,7 @@ def phase_main_path(sk, torch, device):
 
     t0 = time.perf_counter()
     config = DQNConfig()  # features 2048, hidden 1024, 3 blocks, bf16
-    model = tdqn.init_params(tdqn.create_model(config, "cpu"),
-                             torch.Generator().manual_seed(SEED))
-    params = tdqn.to_flax_params(model)
-    del model
+    params = full_width_params(torch)
     n_params = sum(v.size for g in params.values() for v in g.values())
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "params.npz")
@@ -539,7 +567,7 @@ def phase_main_path(sk, torch, device):
     print(f"phase 4: narrow greedy eval, card == CPU on the same bits "
           f"({results[0].batch_steps} steps, score mean "
           f"{results[0].scores.mean():.1f})")
-    return launches
+    return launches, warm
 
 
 def elapsed_ms(torch, fn, n):
@@ -1439,6 +1467,7 @@ def phase_rollout_path(sk, tk, torch):
     from tpu2048_torch.cli.main import main as cli_main
 
     rollout_launches = 0
+    summaries = {}
     evals = [("simple", EVAL_GAMES), ("simple, warm", EVAL_GAMES),
              ("shaped", EVAL_GAMES), ("simple", BIG_EVAL)]
     for label, games in evals:
@@ -1461,6 +1490,7 @@ def phase_rollout_path(sk, tk, torch):
                 or summary["env_steps"] != summary["batch_steps"] * games):
             fail(f"implausible random eval ({label}): {summary}")
         rollout_launches += counts["rollout"]
+        summaries[label, games] = summary
         secs = summary["seconds"]
         print(f"phase 11: eval --policy random, {label}, {games} games: "
               f"{windows} rollout launches = {summary['batch_steps']} steps / "
@@ -1498,7 +1528,7 @@ def phase_rollout_path(sk, tk, torch):
         fail(f"bench --tabular: {tab}, launches {counts}")
     print(f"phase 11: bench --tabular: {json.dumps(tab)}; launches {counts} "
           f"for {steps} steps; {wall:.3f} s for the CLI call")
-    return rollout_launches
+    return rollout_launches, summaries
 
 
 def rollout_work(sk, lanes, k, bits):
@@ -1820,7 +1850,7 @@ def phase_dqn_path(sk, tk, torch, device):
             {k: summary[k] for k in ("episodes", "env_steps", "best_tile",
                                      "train_steps", "late_mean_score",
                                      "final_tile_distribution")}))
-        split, forward_ms = profile_dqn_step(torch, device, ck)
+        profile_dqn_step(torch, device, ck)
 
         text, rcounts, rwall = run_path(sk, tk, torch, cli_main, [
             "train", "dqn", "--episodes", str(last["episodes"] + 1),
@@ -1851,7 +1881,7 @@ def phase_dqn_path(sk, tk, torch, device):
               f"{summary['best_tile']}, {ecounts['step']} step-kernel "
               f"launches = {summary['batch_steps']} steps; {ewall:.3f} s "
               f"for the CLI call")
-    return counts["step"], split, forward_ms
+    return counts["step"], rows
 
 
 def endgame_boards(gen, n):
@@ -2317,6 +2347,420 @@ def phase_legacy_narrow(torch, device):
           f"{int(card.table.occupied.sum())} states")
 
 
+# Phase 18, the classic env card against CPU: each mode of the env (the
+# shaped ones with stall limits 3 and 8, so that stall penalties and the
+# stall force-done happen), at B=4096 for 64 steps, on the same spawn
+# decisions and fresh boards drawn once on the CPU.
+LAX_BATCH, LAX_STEPS = 4096, 64
+LAX_STALL = dict(max_consecutive_actions=3, stall_force_done=8)
+LAX_MODES = {
+    "simple": dict(reward="simple"),
+    "simple, terminal bonus": dict(reward="simple", terminal_bonus=True),
+    "simple, quirk_compat": dict(reward="simple", quirk_compat=True),
+    "shaped": dict(reward="shaped", **LAX_STALL),
+    "shaped, reset_shaping_on_reset": dict(
+        reward="shaped", reset_shaping_on_reset=True, **LAX_STALL),
+}
+# tests/test_torch_rewards.py: the shaped reward's log2 and pow may round
+# one float32 ulp apart on two devices; the episode returns sum 64 of them.
+LAX_REWARD_RTOL, LAX_RETURN_RTOL = 2e-6, 4e-5
+# The spawn distribution: draws on the card's generator; chi-square at
+# p = 0.001 over the 8 empties of the probe board (7 degrees of freedom)
+# and over the value's two outcomes (1).
+LAX_DRAWS = 131072
+CHI2_7, CHI2_1 = 24.32, 10.83
+# Full but playable: every row merges left, so LEFT (and, in quirk mode,
+# the probe of an illegal UP) leaves 8 empties in columns 2-3.
+CLOBBER_VALUES = [[2, 2, 4, 4], [8, 8, 16, 16], [32, 32, 64, 64],
+                  [128, 128, 2, 2]]
+PROBE_VALUES = [[4, 8, 0, 0], [16, 32, 0, 0], [64, 128, 0, 0],
+                [256, 4, 0, 0]]
+# The lax DQN run: `train dqn`'s defaults at full width, cut to 8 episodes;
+# the demo's scripted manual keys, cycled.
+LAX_DQN_EPISODES = 8
+DEMO_KEYS = ("a", "s", "d", "s", "x", "w")
+DEMO_MANUAL_MOVES = 200
+
+
+def lax_boards(torch, b):
+    """(b, 4, 4) int8 on the CPU: phase 10's sparse, full and dead boards,
+    a quarter of dense endgame boards and one clobber board."""
+    from tpu2048_torch.ops import board as board_ops
+
+    boards = edge_boards(torch, b, "cpu").T.reshape(b, 4, 4).contiguous()
+    gen = torch.Generator().manual_seed(SEED + 18)
+    boards[b // 4:b // 2] = endgame_boards(gen, b // 4)
+    boards[b // 4 - 1] = board_ops.values_to_exponents(CLOBBER_VALUES)
+    return boards
+
+
+def lax_equal(torch, name, got, want, rtol):
+    """Card against CPU: integers and bools equal, floats within ``rtol``
+    of max(1, |x|) (0: equal)."""
+    got = got.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: {got.dtype} {tuple(got.shape)} on the card, "
+             f"{want.dtype} {tuple(want.shape)} on the CPU")
+    if not want.is_floating_point():
+        if not torch.equal(got, want):
+            fail(f"{name}: the card's differs from the CPU's")
+        return 0.0
+    err = float(((got.double() - want.double()).abs()
+                 / want.double().abs().clamp_min(1.0)).max())
+    if not err <= rtol:
+        fail(f"{name}: relative error {err:.3e} above {rtol}")
+    return err
+
+
+def aten_ops(fn):
+    """How many aten ops ``fn()`` dispatches (views included): each
+    launches at most one kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def phase_lax_env(torch, device):
+    """The classic env's step (``step`` through a replay source, so that
+    every lane runs ``step_with_spawn`` and the auto-reset) on the card
+    against the CPU, in every mode."""
+    from tpu2048_torch.env import env as envlib
+
+    b = LAX_BATCH
+    gen = torch.Generator().manual_seed(SEED + 19)
+    start = lax_boards(torch, b)
+    actions, spawns, fresh = [], [], []
+    for t in range(LAX_STEPS):
+        # Runs of one action, so that the stall counters climb.
+        a = torch.randint(0, 4, (b,), dtype=torch.int32, generator=gen)
+        actions.append(torch.where(torch.rand(b, generator=gen) < 0.7,
+                                   t // 4 % 4, a).to(torch.int32))
+        spawns.append((torch.randint(0, 6, (b,), dtype=torch.int32,
+                                     generator=gen),
+                       torch.randint(1, 3, (b,), dtype=torch.int8,
+                                     generator=gen)))
+        fresh.append(envlib.GeneratorSpawns(SEED + t, "cpu").fresh(b))
+    ts_ints = ("obs", "done", "max_number", "valid", "merge_score",
+               "legal_mask", "episode_steps")
+    from tpu2048_torch.ops import board as board_ops
+
+    on_card = start.to(device)
+    source = envlib.GeneratorSpawns(SEED, device)
+    print(f"phase 18: aten ops of the classic step's parts on the card: "
+          f"move_all {aten_ops(lambda: board_ops.move_all(on_card))}, the "
+          f"fresh boards {aten_ops(lambda: source.fresh(b))}, a spawn draw "
+          f"{aten_ops(lambda: source.spawn(on_card))}")
+    for label, mode in LAX_MODES.items():
+        config = envlib.EnvConfig(**mode)
+        shaped = config.reward == "shaped"
+        states = []
+        for dev in (device, torch.device("cpu")):
+            source = envlib.ReplaySpawns(
+                [(i.to(dev), v.to(dev)) for i, v in spawns],
+                [start.to(dev)] + [f.to(dev) for f in fresh])
+            states.append((envlib.reset(config, source, b), source))
+        t0 = time.perf_counter()
+        card_s = cpu_s = 0.0
+        max_err, dones = 0.0, 0
+        for t in range(LAX_STEPS):
+            t1 = time.perf_counter()
+            card_state, card_ts = envlib.step(config, states[0][0],
+                                              actions[t].to(device),
+                                              states[0][1])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            cpu_state, cpu_ts = envlib.step(config, states[1][0],
+                                            actions[t], states[1][1])
+            t3 = time.perf_counter()
+            card_s, cpu_s = card_s + t2 - t1, cpu_s + t3 - t2
+            for f in ts_ints:
+                lax_equal(torch, f"{label}, step {t}, {f}",
+                          getattr(card_ts, f), getattr(cpu_ts, f), 0.0)
+            max_err = max(max_err, lax_equal(
+                torch, f"{label}, step {t}, reward", card_ts.reward,
+                cpu_ts.reward, LAX_REWARD_RTOL if shaped else 0.0))
+            for f in ("board", "score", "move_score", "prev_max",
+                      "consec_action", "consec_count", "episode_steps",
+                      "done", "last_consec_penalty"):
+                lax_equal(torch, f"{label}, step {t}, state {f}",
+                          getattr(card_state, f), getattr(cpu_state, f), 0.0)
+            lax_equal(torch, f"{label}, step {t}, episode_return",
+                      card_state.episode_return, cpu_state.episode_return,
+                      LAX_RETURN_RTOL if shaped else 0.0)
+            dones += int(cpu_ts.done.sum())
+            states = [(card_state, states[0][1]), (cpu_state, states[1][1])]
+        if dones == 0:
+            fail(f"{label}: no episode ended in {LAX_STEPS} steps")
+        source = envlib.GeneratorSpawns(SEED, device)
+        action = actions[0].to(device)
+        ops = aten_ops(lambda: envlib.step(config, states[0][0], action,
+                                           source))
+        print(f"phase 18: classic env, {label}, B={b}, {LAX_STEPS} steps "
+              f"(step_with_spawn and the auto-reset): card == CPU on every "
+              f"integer output and state field, reward max relative error "
+              f"{max_err:.3e} (limit "
+              f"{LAX_REWARD_RTOL if shaped else 0.0}); {dones} episode "
+              f"ends; {1e3 * card_s / LAX_STEPS:.3f} ms a step on the card "
+              f"(eager, synchronised; {ops} aten ops a step), "
+              f"{1e3 * cpu_s / LAX_STEPS:.3f} ms on the CPU; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def chi2(counts, probs):
+    n = sum(counts)
+    return sum((c - n * p) ** 2 / (n * p) for c, p in zip(counts, probs))
+
+
+def phase_lax_spawns(torch, device):
+    """The production source's draws on the card: the spawn cell uniform
+    over the empties of the board it lands on (the quirk probe board, and
+    a plain LEFT move's board), the value a 2 with p = 0.9; fresh boards
+    of two tiles."""
+    from tpu2048_torch.env import env as envlib
+    from tpu2048_torch.ops import board as board_ops
+
+    n = LAX_DRAWS
+    board = board_ops.values_to_exponents(CLOBBER_VALUES).to(device)
+    probe = board_ops.values_to_exponents(PROBE_VALUES).to(device)
+    cases = (("quirk clobber (illegal UP)", dict(quirk_compat=True), 1),
+             ("simple, LEFT", {}, 0))
+    for label, mode, action in cases:
+        config = envlib.EnvConfig(reward="simple", auto_reset=False, **mode)
+        source = envlib.GeneratorSpawns(SEED + action, device)
+        state = envlib.reset(config, source, n)
+        state.board = board.expand(n, 4, 4).contiguous()
+        _, ts = envlib.step(config, state,
+                            torch.full((n,), action, dtype=torch.int32,
+                                       device=device), source)
+        diff = ts.obs != probe
+        if not bool((diff.flatten(1).sum(1) == 1).all()):
+            fail(f"spawns, {label}: not exactly one new tile a lane")
+        lane, rows, cols = diff.nonzero(as_tuple=True)
+        if not bool((cols >= 2).all()):
+            fail(f"spawns, {label}: a tile outside the probe's empties")
+        cells = torch.bincount(rows * 2 + (cols - 2), minlength=8).tolist()
+        twos = int((ts.obs[lane, rows, cols] == 1).sum())
+        c_cells = chi2(cells, [1 / 8] * 8)
+        c_val = chi2([twos, n - twos], [0.9, 0.1])
+        if not (c_cells < CHI2_7 and c_val < CHI2_1):
+            fail(f"spawns, {label}: cells {cells} (chi2 {c_cells:.2f}), "
+                 f"twos {twos} of {n} (chi2 {c_val:.2f})")
+        print(f"phase 18: {n} spawns on the card, {label}: cells {cells}, "
+              f"chi2 {c_cells:.2f} < {CHI2_7} (7 dof, p=0.001); "
+              f"{twos / n:.4f} twos, chi2 {c_val:.2f} < {CHI2_1}")
+    fresh = envlib.GeneratorSpawns(SEED, device).fresh(n)
+    tiles = (fresh != 0).flatten(1).sum(1)
+    if not bool((tiles == 2).all()):
+        fail("fresh boards on the card without exactly two tiles")
+    print(f"phase 18: {n} fresh boards on the card: two tiles each")
+
+
+def lax_run(sk, tk, torch, cli_main, argv, label):
+    """``run_path`` for a lax-engine call that must launch no kernel."""
+    text, counts, wall = run_path(sk, tk, torch, cli_main, argv)
+    if any(counts.values()):
+        fail(f"{label}: launches {counts}, expected none")
+    return text, wall
+
+
+def two_sample(label, a, b, games):
+    """Means within four standard errors of their difference."""
+    se = math.sqrt(a["score_std"] ** 2 / games + b["score_std"] ** 2 / games)
+    diff = abs(a["score_mean"] - b["score_mean"])
+    if not diff < 4 * se:
+        fail(f"{label}: score means {a['score_mean']:.1f} and "
+             f"{b['score_mean']:.1f} differ by {diff:.1f} > 4 x {se:.1f}")
+    return diff, se
+
+
+def phase_lax_paths(sk, tk, torch, device, earlier):
+    """The lax engine through ``tpu2048_torch.cli.main`` at full width;
+    returns the table kernels' launches."""
+    from tpu2048_torch.checkpoint.params import save_params
+    from tpu2048_torch.cli.main import main as cli_main
+    from tpu2048_torch.eval.demo import play
+    from tpu2048_torch.metrics.logging import read_jsonl
+
+    launches = {"gather": 0, "scatter": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        # train tabular --engine lax at the defaults, cut as phase 7 is.
+        log = os.path.join(tmp, "tabular.jsonl")
+        _, counts, wall = run_path(sk, tk, torch, cli_main, [
+            "train", "tabular", "--engine", "lax", "--batch",
+            str(TABLE_BATCH), "--capacity-log2", str(TABLE_LOG2),
+            "--episodes", str(TABLE_EPISODES), "--steps-per-chunk",
+            str(TABLE_CHUNK), "--seed", "0", "--log", log])
+        rows = read_jsonl(log)
+        steps = rows[-1]["env_steps"] // TABLE_BATCH if rows else 0
+        if (len(rows) < 2 or steps != len(rows) * TABLE_CHUNK
+                or counts["gather"] != 2 * steps
+                or counts["scatter"] != steps or counts["step"]
+                or counts["rollout"]
+                or any(sum(r["action_counts"]) != r["env_steps"]
+                       or not r["q_states"] > 0 for r in rows)):
+            fail(f"train tabular --engine lax: {len(rows)} chunks, {steps} "
+                 f"steps, launches {counts}")
+        launches["gather"] += counts["gather"]
+        launches["scatter"] += counts["scatter"]
+        for row in rows:
+            print("phase 18: train tabular --engine lax, row "
+                  + json.dumps(row))
+        print(f"phase 18: train tabular --engine lax, capacity "
+              f"2**{TABLE_LOG2}, batch {TABLE_BATCH}, shaped: launches "
+              f"{counts} for {steps} env steps (gathers = 2 x steps, "
+              f"scatters = steps, no step kernel); {wall:.3f} s for the CLI "
+              f"call")
+        packed = earlier["packed_rows"]
+        for i, row in enumerate(rows):
+            beside = (f"; fast engine (phase 7): "
+                      f"{1e3 * TABLE_BATCH / packed[i]['steps_per_s']:.3f} "
+                      f"ms a step" if i < len(packed) else "")
+            print(f"phase 18: chunk {i + 1}: lax "
+                  f"{1e3 * TABLE_BATCH / row['steps_per_s']:.3f} ms a step, "
+                  f"{row['steps_per_s']:.0f} env-steps/s{beside}")
+
+        # eval --policy random --engine lax beside phase 11's fast eval.
+        text, wall = lax_run(sk, tk, torch, cli_main, [
+            "eval", "--policy", "random", "--engine", "lax", "--games",
+            str(EVAL_GAMES), "--eval-batch", str(EVAL_GAMES), "--seed",
+            str(SEED)], "eval --policy random --engine lax")
+        lax = json.loads(text)
+        fast = earlier["random_fast"]["simple, warm", EVAL_GAMES]
+        if (lax["games"] != EVAL_GAMES
+                or sum(lax["action_counts"].values())
+                != round(lax["length_mean"] * EVAL_GAMES)):
+            fail(f"eval --policy random --engine lax: {lax}")
+        diff, se = two_sample("random eval, lax vs fast", lax, fast,
+                              EVAL_GAMES)
+        for name, run in (("lax", lax), ("fast (phase 11)", fast)):
+            secs = run["seconds"]
+            print(f"phase 18: eval --policy random, {name}, {EVAL_GAMES} "
+                  f"games: {EVAL_GAMES / secs:.1f} games/s, "
+                  f"{1e3 * secs / run['batch_steps']:.3f} ms a step; score "
+                  f"mean {run['score_mean']:.1f} (std "
+                  f"{run['score_std']:.1f}), length mean "
+                  f"{run['length_mean']:.1f}, max tiles "
+                  f"{run['max_tile_distribution']}")
+        print(f"phase 18: random eval, lax vs fast: score means differ by "
+              f"{diff:.1f} < 4 x {se:.1f} (standard error of the "
+              f"difference); lax: no kernel launched; {wall:.3f} s for the "
+              f"CLI call")
+
+        # eval --policy model --engine lax with phase 4's seeded weights.
+        path = os.path.join(tmp, "params.npz")
+        save_params(path, full_width_params(torch))
+        text, wall = lax_run(sk, tk, torch, cli_main, [
+            "eval", "--policy", "model", "--params", path, "--engine", "lax",
+            "--games", str(EVAL_GAMES), "--eval-batch", str(EVAL_GAMES),
+            "--seed", str(SEED)], "eval --policy model --engine lax")
+        lax = json.loads(text)
+        if lax["games"] != EVAL_GAMES or not lax["length_mean"] > 0:
+            fail(f"eval --policy model --engine lax: {lax}")
+        for name, run in (("lax", lax), ("fast (phase 4, warm)",
+                                         earlier["greedy_fast"])):
+            secs = run["seconds"]
+            print(f"phase 18: eval --policy model, full width, {name}: "
+                  f"{EVAL_GAMES / secs:.1f} games/s, "
+                  f"{1e3 * secs / run['batch_steps']:.3f} ms a step "
+                  f"({run['batch_steps']} steps), score mean "
+                  f"{run['score_mean']:.1f}")
+        print(f"phase 18: eval --policy model --engine lax: no kernel "
+              f"launched; {wall:.3f} s for the CLI call")
+
+        # train dqn --engine lax at the defaults, then --resume.
+        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "dqn.jsonl")
+        _, wall = lax_run(sk, tk, torch, cli_main, [
+            "train", "dqn", "--engine", "lax", "--episodes",
+            str(LAX_DQN_EPISODES), "--checkpoint-dir", ck, "--log", log,
+            "--seed", str(SEED)], "train dqn --engine lax")
+        rows = read_jsonl(log)
+        last = rows[-1] if rows else {}
+        if (not rows or last["episodes"] < LAX_DQN_EPISODES
+                or last["train_steps"] + last["update_debt"]
+                != 100 * last["episodes"]
+                or not math.isfinite(last["loss"])
+                or sum(last["tile_hist"]) != last["episodes"]):
+            fail(f"train dqn --engine lax: rows {rows}")
+        for row in rows:
+            print("phase 18: train dqn --engine lax, row " + json.dumps(row))
+        fast_rows = earlier["dqn_rows"]
+        for i, row in enumerate(rows):
+            beside = (f"; fast engine (phase 13): "
+                      f"{1e3 * DQN_ENVS / fast_rows[i]['steps_per_s']:.3f} "
+                      f"ms" if i < len(fast_rows) else "")
+            print(f"phase 18: chunk {i + 1}: lax "
+                  f"{1e3 * DQN_ENVS / row['steps_per_s']:.3f} ms a vector "
+                  f"step{beside}")
+        print(f"phase 18: train dqn --engine lax, full width, "
+              f"{LAX_DQN_EPISODES} episodes: {last['train_steps']} updates "
+              f"+ {last['update_debt']} owed = 100 x {last['episodes']} "
+              f"episodes, no kernel launched; {wall:.3f} s for the CLI call")
+        _, wall = lax_run(sk, tk, torch, cli_main, [
+            "train", "dqn", "--episodes", str(last["episodes"] + 1),
+            "--checkpoint-dir", ck, "--resume", "--log", log],
+            "train dqn --resume (lax)")
+        resumed = read_jsonl(log)[len(rows):]
+        if (not resumed or resumed[0]["env_steps"]
+                != last["env_steps"] + DQN_ENVS * DQN_CHUNK
+                or resumed[-1]["episodes"] <= last["episodes"]):
+            fail(f"train dqn --resume (lax): rows {resumed}")
+        print(f"phase 18: train dqn --resume on the lax run: "
+              f"{len(resumed)} chunk(s) from episode {last['episodes']}, "
+              f"{1e3 * DQN_ENVS / resumed[0]['steps_per_s']:.3f} ms a vector "
+              f"step; {wall:.3f} s for the CLI call (the restore included)")
+
+        # demo: random, and model mode on the lax run's weights.
+        for mode, extra in (("random", []),
+                            ("model", ["--checkpoint-dir", ck])):
+            text, wall = lax_run(sk, tk, torch, cli_main, [
+                "demo", "--mode", mode, "--delay", "0", "--seed",
+                str(SEED), *extra], f"demo --mode {mode}")
+            stats = json.loads(text.strip().splitlines()[-1])
+            if "GAME OVER" not in text or not stats["moves"] > 0:
+                fail(f"demo --mode {mode}: {stats}")
+            print(f"phase 18: demo --mode {mode} --delay 0: stats "
+                  f"{json.dumps(stats)}; {1e3 * wall / stats['moves']:.3f} "
+                  f"ms a move ({wall:.3f} s for the CLI call)")
+
+    # A manual session on the card, driven by scripted keys.
+    keys = itertools.chain(
+        itertools.islice(itertools.cycle(DEMO_KEYS),
+                         DEMO_MANUAL_MOVES * len(DEMO_KEYS) // 5), ["q"])
+    out = io.StringIO()
+    zero_counts(sk, tk)
+    t0 = time.perf_counter()
+    stats = play(mode="manual", seed=SEED, out=out,
+                 input_fn=lambda: next(keys))
+    wall = time.perf_counter() - t0
+    if any(read_counts(sk, tk, torch).values()) or not stats["moves"] > 0:
+        fail(f"manual session: {stats}")
+    print(f"phase 18: GameSession(mode='manual') on the card, scripted "
+          f"keys through play(input_fn=...): stats {json.dumps(stats)}, "
+          f"{'game over' if 'GAME OVER' in out.getvalue() else 'quit'}; "
+          f"{1e3 * wall / stats['moves']:.3f} ms a move")
+    return launches
+
+
+def phase_lax(sk, tk, torch, device, earlier):
+    """Phase 18, the classic env and the lax engine; returns the table
+    kernels' launches in its CLI paths."""
+    t0 = time.perf_counter()
+    phase_lax_env(torch, device)
+    phase_lax_spawns(torch, device)
+    launches = phase_lax_paths(sk, tk, torch, device, earlier)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s of wall time")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2355,7 +2799,7 @@ def main():
 
     phase_build(sk, tk)
     max_err = phase_equal(sk, torch, device)
-    launches = phase_main_path(sk, torch, device)
+    launches, greedy_fast = phase_main_path(sk, torch, device)
     main_row = phase_step_timing(sk, torch, device, REPO)[0]
     gather_err, scatter_err = phase_table_equal(tk, torch, device)
     table_launches, packed_rows = phase_tabular(sk, tk, torch, device)
@@ -2369,10 +2813,10 @@ def main():
     del data
     torch.cuda.synchronize()
     rollout_err = phase_rollout_equal(sk, torch, device)
-    rollout_launches = phase_rollout_path(sk, tk, torch)
+    rollout_launches, random_fast = phase_rollout_path(sk, tk, torch)
     rollout_row = phase_rollout_timings(sk, torch, device,
                                         ROLLOUT_TIMING_CASES)[0]
-    dqn_launches, _, _ = phase_dqn_path(sk, tk, torch, device)
+    dqn_launches, dqn_rows = phase_dqn_path(sk, tk, torch, device)
     phase_dqn_narrow(torch, device)
     phase_dqn_benches(sk, tk, torch)
     phase_fused_forward(torch, device)
@@ -2381,6 +2825,9 @@ def main():
     fused_launches = phase_fused_train(sk, tk, torch, device)
     legacy_launches = phase_legacy(sk, tk, torch, device, packed_rows)
     phase_legacy_narrow(torch, device)
+    lax_launches = phase_lax(sk, tk, torch, device, dict(
+        packed_rows=packed_rows, random_fast=random_fast,
+        greedy_fast=greedy_fast, dqn_rows=dqn_rows))
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -2413,9 +2860,11 @@ def main():
             "library_ms": None,
             "library_graph_ms": None,
         },
-        table_entry("bucket_gather", 65, table_launches["gather"],
+        table_entry("bucket_gather", 65,
+                    table_launches["gather"] + lax_launches["gather"],
                     gather_err),
-        table_entry("bucket_scatter", 112, table_launches["scatter"],
+        table_entry("bucket_scatter", 112,
+                    table_launches["scatter"] + lax_launches["scatter"],
                     scatter_err),
         {
             "name": "rollout_kernel",

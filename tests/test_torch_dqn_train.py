@@ -128,9 +128,10 @@ def assert_close(got, want, rtol, name):
     assert err.max(initial=0) <= rtol, f"{name}: {err.max():.3e}"
 
 
-def assert_loops_agree(ts, js):
-    for name in ("boards", "legal", "score", "episode_steps",
-                 "episode_return"):
+def assert_loops_agree(ts, js, env_fields=("boards", "legal", "score",
+                                           "episode_steps",
+                                           "episode_return")):
+    for name in env_fields:
         np.testing.assert_array_equal(getattr(ts.env_state, name).numpy(),
                                       np.asarray(getattr(js.env_state, name)),
                                       name)
@@ -376,8 +377,7 @@ def test_cli_warm_start_and_stop_at_tile(tmp_path, capsys):
     assert rc == 2
 
 
-@pytest.mark.parametrize("flags", [["--engine", "lax"],
-                                   ["--replay-shards", "2"],
+@pytest.mark.parametrize("flags", [["--replay-shards", "2"],
                                    ["--data-parallel", "2"],
                                    ["--model-parallel", "2"],
                                    ["--coordinator", "localhost:1234"],

@@ -234,8 +234,17 @@ def test_random_policy_is_drawn_only_in_the_kernel():
 
 
 def test_evaluate_refuses_the_lax_engine():
+    """The lax engine was refused until the classic env was ported: now
+    greedy evaluation plays on it, from the classic env's spawn source,
+    and a fast bit source is not one."""
+    from tpu2048_torch.env.env import GeneratorSpawns
+
     model = tdqn.create_model(DQNConfig(bf16=False, **NARROW), "cpu")
-    bits = tfast.GeneratorBits(0, "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        teval.evaluate(teval.greedy_dqn_policy(model), 4, bits,
-                       engine="lax")
+    got = teval.evaluate(teval.greedy_dqn_policy(model), 4,
+                         GeneratorSpawns(0, "cpu"), batch_size=4,
+                         max_steps=32, engine="lax")
+    assert len(got.scores) == 4 and got.batch_steps in (32, 64)
+    assert got.action_counts.sum() == got.lengths.sum() > 0
+    with pytest.raises(AttributeError):
+        teval.evaluate(teval.greedy_dqn_policy(model), 4,
+                       tfast.GeneratorBits(0, "cpu"), engine="lax")

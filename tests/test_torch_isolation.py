@@ -33,6 +33,8 @@ def test_importing_the_port_loads_no_jax_and_no_tpu2048():
         "tpu2048_torch.checkpoint.ckpt", "tpu2048_torch.models.dqn",
         "tpu2048_torch.metrics.analyze", "tpu2048_torch.metrics.profiling",
         "tpu2048_torch.utils.watchdog", "tpu2048_torch.utils.debug",
+        "tpu2048_torch.env.env", "tpu2048_torch.env.parity",
+        "tpu2048_torch.eval.demo", "tpu2048_torch.eval.gui",
     } <= set(modules)
     code = (
         "import importlib, sys\n"
@@ -97,8 +99,10 @@ def test_cpu_tensors_run_the_plain_rollout_without_a_launch():
     ["bench", "--tabular", "--batch", "4"],
     ["bench", "--learner", "--updates", "1"],
     ["bench", "--train-loop", "--envs", "4"],
+    ["eval", "--policy", "random", "--engine", "lax", "--games", "4"],
+    ["demo", "--mode", "random", "--delay", "0"],
 ], ids=["eval-random", "bench", "bench-tabular", "bench-learner",
-        "bench-train-loop"])
+        "bench-train-loop", "eval-random-lax", "demo-random"])
 def test_rollout_entry_points_default_to_cuda(argv, monkeypatch):
     from tpu2048_torch.cli.main import main
 

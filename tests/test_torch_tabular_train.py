@@ -205,9 +205,27 @@ def test_cli_train_save_and_eval_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--engine", "lax"]])
-def test_cli_train_refuses_what_is_not_ported(flags, capsys):
-    assert main(["train", "tabular", "--cpu", *flags]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_train_refuses_what_is_not_ported(flags, tmp_path):
+    """``--engine lax`` was refused until the classic env was ported: now
+    ``train tabular`` runs on it and ``eval --engine lax`` reads its
+    table."""
+    table, log = str(tmp_path / "q.npz"), str(tmp_path / "m.jsonl")
+    rc, _ = run_cli(["train", "tabular", "--cpu", *flags, "--episodes", "4",
+                     "--batch", "16", "--capacity-log2", "10",
+                     "--steps-per-chunk", "64", "--save", table, "--log",
+                     log])
+    assert rc == 0
+    from tpu2048_torch.metrics.logging import read_jsonl
+
+    rows = read_jsonl(log)
+    assert rows[-1]["episodes"] >= 4 and rows[-1]["q_states"] > 0
+    assert sum(rows[-1]["action_counts"]) == rows[-1]["env_steps"]
+    rc, out = run_cli(["eval", "--policy", "tabular", "--table", table,
+                       "--games", "8", "--eval-batch", "8", "--cpu",
+                       "--reward", "shaped", *flags])
+    assert rc == 0
+    summary = json.loads(out)
+    assert summary["games"] == 8 and summary["batch_steps"] % 32 == 0
 
 
 @pytest.mark.parametrize("backend", ["xla", "interpret"])

@@ -1,5 +1,6 @@
 """Command line, the port of :mod:`tpu2048.cli.main` (``train tabular``,
-``train dqn``, ``eval``, ``bench``, ``plot`` and ``analyze`` so far).
+``train dqn``, ``eval``, ``demo``, ``gui``, ``bench``, ``plot`` and
+``analyze``).
 
 ``python -m tpu2048_torch train tabular --save q.npz`` trains the tabular
 Q-learner on the card and writes its table; ``python -m tpu2048_torch train
@@ -8,9 +9,13 @@ state there (``--resume`` continues it). ``python -m tpu2048_torch eval
 --policy tabular --table q.npz``, ``--policy model --checkpoint-dir DIR
 [--step N | --named NAME]`` or ``--policy model --params FILE.npz`` plays
 greedy games, ``--policy random`` (the default) random-legal ones on the
-rollout kernel, and prints ``EvalResult.summary()`` as JSON; ``python -m
-tpu2048_torch bench [--tabular | --learner | --train-loop]`` prints one
-JSON line of throughput (:mod:`tpu2048_torch.bench`). ``plot --log
+rollout kernel, and prints ``EvalResult.summary()`` as JSON; ``--engine
+lax`` plays (and trains) on the classic env instead of the env kernels.
+``python -m tpu2048_torch demo --mode manual|random|model`` plays one game
+in the terminal and ``gui`` in a Tk window, each printing its stats as
+JSON. ``python -m tpu2048_torch bench [--tabular | --learner |
+--train-loop]`` prints one JSON line of throughput
+(:mod:`tpu2048_torch.bench`). ``plot --log
 m.jsonl --out m.png`` draws the training plot and ``analyze --log m.jsonl``
 prints the run's milestones. ``--cpu``, before or after the subcommand,
 runs on the CPU instead. Flag names and defaults are the JAX CLI's;
@@ -23,6 +28,7 @@ package. Flags of parts not yet ported exit with code 2.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -113,9 +119,23 @@ def _load_run_config(args, directory: str):
     return args
 
 
+def _restore_config(args, directory: str):
+    """The train config of a run restored from ``directory``: the saved
+    loop state's env state (classic or fast) follows the engine in the
+    run's config.json, whatever this invocation's ``--engine``. A
+    config.json without an ``engine`` key means lax: such runs stepped the
+    classic env (the JAX CLI's rule)."""
+    cfg = _dqn_config(args)
+    path = os.path.join(directory, "config.json")
+    if os.path.isfile(path):
+        with open(path) as fh:
+            saved = json.load(fh).get("engine", "lax")
+        if saved and saved != cfg.engine:
+            cfg = dataclasses.replace(cfg, engine=saved)
+    return cfg
+
+
 def cmd_train(args) -> int:
-    if args.engine == "lax":
-        return _not_ported("--engine lax")
     rc = _plot_refusal(args)
     if rc:
         return rc
@@ -163,7 +183,6 @@ def cmd_train(args) -> int:
 def _dqn_refusal(args) -> int:
     """Exit 2 for the flags of parts not yet ported; 0 when none is set."""
     refused = (
-        ("--engine lax", args.engine == "lax"),
         ("--replay-shards other than 1", args.replay_shards != 1),
         ("--data-parallel above 1", args.data_parallel > 1),
         ("--model-parallel above 1", args.model_parallel > 1),
@@ -232,13 +251,17 @@ def cmd_train_dqn(args) -> int:
 
     device = resolve_device("cpu" if args.cpu else None)
     mgr = None
+    config = None
     if args.checkpoint_dir:
         if args.resume:
-            # A resumed run keeps the shapes it was started with.
+            # A resumed run keeps the shapes and the engine it was started
+            # with.
             args = _load_run_config(args, args.checkpoint_dir)
+            config = _restore_config(args, args.checkpoint_dir)
+            args.engine = config.engine
         mgr = CheckpointManager(args.checkpoint_dir)
         _save_run_config(args, args.checkpoint_dir)
-    config = _dqn_config(args)
+    config = config or _dqn_config(args)
     state = None
     # A run that resumes from its own checkpoints carries its lineage in
     # them: the warm start is skipped then.
@@ -312,32 +335,91 @@ def cmd_eval(args) -> int:
         print("--table required for --policy tabular", file=sys.stderr)
         return 2
 
-    from tpu2048_torch.env.env import EnvConfig
-    from tpu2048_torch.env.fast import GeneratorBits, PhiloxBits
+    from tpu2048_torch.env.env import EnvConfig, GeneratorSpawns
+    from tpu2048_torch.env.fast import (GeneratorBits, PhiloxBits,
+                                        resolve_engine)
     from tpu2048_torch.eval.evaluate import evaluate, random_legal_policy
     from tpu2048_torch.utils.device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)
-    if args.policy == "random":
-        # The rollout kernel draws the random policy's bits in-kernel.
-        policy, bits = random_legal_policy(), PhiloxBits(args.seed, device)
-    else:
+    if args.policy != "random":
         make = _model_policy if args.policy == "model" else _tabular_policy
         try:
+            # A --checkpoint-dir's config.json gives the engine too, unless
+            # --engine is given.
             policy = make(args, device)
         except FileNotFoundError as e:
             print(e, file=sys.stderr)
             return 2
+    env_config = EnvConfig(reward=args.reward, auto_reset=False)
+    engine = resolve_engine(env_config, args.engine, require_auto_reset=False)
+    if engine == "lax":
+        # The classic env's spawns; the random policy draws per step from
+        # the same generator.
+        bits = GeneratorSpawns(args.seed, device)
+        if args.policy == "random":
+            policy = random_legal_policy(bits.generator)
+    elif args.policy == "random":
+        # The rollout kernel draws the random policy's bits in-kernel.
+        policy, bits = random_legal_policy(), PhiloxBits(args.seed, device)
+    else:
         bits = GeneratorBits(args.seed, device)
     result = evaluate(
         policy,
         num_games=args.games,
         bits=bits,
-        env_config=EnvConfig(reward=args.reward, auto_reset=False),
+        env_config=env_config,
         batch_size=args.eval_batch,
+        engine=engine,
     )
     print(json.dumps(result.summary(), indent=2))
     return 0
+
+
+def _demo_policy(args, device):
+    """The greedy policy of demo and gui model mode (a Q-table with
+    ``--table``, else a DQN as ``eval --policy model`` loads it); None in
+    the other modes."""
+    if args.mode != "model":
+        return None
+    if args.table:
+        return _tabular_policy(args, device)
+    return _model_policy(args, device)
+
+
+def _play(args, run) -> int:
+    if args.mode == "model" and not (args.table or args.checkpoint_dir
+                                     or args.params):
+        print("--mode model requires --checkpoint-dir or --params (a "
+              "trained DQN) or --table (a trained tabular Q-table)",
+              file=sys.stderr)
+        return 2
+    from tpu2048_torch.utils.device import resolve_device
+
+    device = resolve_device("cpu" if args.cpu else None)
+    try:
+        policy = _demo_policy(args, device)
+    except FileNotFoundError as e:
+        print(e, file=sys.stderr)
+        return 2
+    print(json.dumps(run(args, policy, device)))
+    return 0
+
+
+def cmd_demo(args) -> int:
+    from tpu2048_torch.eval.demo import play
+
+    return _play(args, lambda a, policy, device: play(
+        mode=a.mode, policy=policy, delay=a.delay, seed=a.seed,
+        device=device))
+
+
+def cmd_gui(args) -> int:
+    from tpu2048_torch.eval.gui import run_gui
+
+    return _play(args, lambda a, policy, device: run_gui(
+        mode=a.mode, policy=policy, delay_ms=int(a.delay * 1000),
+        seed=a.seed, device=device))
 
 
 def cmd_plot(args) -> int:
@@ -390,8 +472,9 @@ def _add_tabular_args(p: argparse.ArgumentParser) -> None:
                    help="Q-table slots = 2**N")
     p.add_argument("--reward", choices=["shaped", "simple"], default="shaped")
     p.add_argument("--engine", choices=["auto", "fast", "lax"], default="auto",
-                   help="actor engine: fast = the env-step kernel; lax is "
-                        "not yet ported")
+                   help="actor engine: fast = the env-step kernel, lax = "
+                        "the classic op-by-op env; auto picks fast "
+                        "whenever the env semantics allow")
     p.add_argument("--table-backend",
                    choices=["auto", "pallas", "interpret", "xla", "legacy"],
                    default="auto",
@@ -448,8 +531,9 @@ def _add_dqn_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--blocks", type=int, default=3)
     p.add_argument("--no-bf16", action="store_true")
     p.add_argument("--engine", choices=["auto", "fast", "lax"], default="auto",
-                   help="actor engine: fast = the env-step kernel; lax is "
-                        "not yet ported")
+                   help="actor engine: fast = the env-step kernel, lax = "
+                        "the classic op-by-op env; auto picks fast "
+                        "whenever the env semantics allow")
     p.add_argument("--steps-per-chunk", type=int, default=16)
     p.add_argument("--replay-shards", type=int, default=1,
                    help="only 1 is ported")
@@ -561,6 +645,11 @@ def build_parser() -> argparse.ArgumentParser:
                     default="simple",
                     help="env regime to evaluate under: simple "
                          "(Deep_QLearning) or shaped (QLearningBase)")
+    pe.add_argument("--engine", choices=["auto", "fast", "lax"],
+                    default="auto",
+                    help="rollout engine: fast = the env kernels, lax = the "
+                         "classic op-by-op env; with --checkpoint-dir the "
+                         "run's config.json gives it unless this is set")
     pe.add_argument("--seed", type=int, default=0)
     pe.add_argument("--features", type=int, default=2048)
     pe.add_argument("--hidden", type=int, default=1024)
@@ -569,6 +658,26 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     pe.set_defaults(fn=cmd_eval)
+
+    for name, fn, help_ in (
+            ("demo", cmd_demo, "terminal play: manual/random/model"),
+            ("gui", cmd_gui, "Tkinter play: manual/random/model")):
+        pd = sub.add_parser(name, help=help_, allow_abbrev=False)
+        _add_dqn_args(pd)
+        pd.add_argument("--table", type=str, default=None,
+                        help="play a trained tabular Q-table instead of a "
+                             "DQN")
+        pd.add_argument("--params", type=str, default=None,
+                        help="params .npz of the Q-network (flax names)")
+        pd.add_argument("--mode", choices=["manual", "random", "model"],
+                        default="manual")
+        pd.add_argument("--delay", type=float, default=0.5,
+                        help="seconds between autoplay moves")
+        pd.add_argument("--step", type=int, default=None)
+        pd.add_argument("--named", type=str, default=None,
+                        help="load a NAMED checkpoint (e.g. a tile_* "
+                             "milestone)")
+        pd.set_defaults(fn=fn)
 
     pb = sub.add_parser("bench", help="throughput benchmarks",
                         allow_abbrev=False)

@@ -1,11 +1,12 @@
-"""Batched evaluation, the port of :mod:`tpu2048.eval.evaluate` (fast
-engine).
+"""Batched evaluation, the port of :mod:`tpu2048.eval.evaluate`.
 
-Plays full games under a policy on the fast env and collects the score,
-max-tile, length and per-action distributions. The env auto-resets finished
-boards, so each lane's FIRST completion is latched and its free restarts are
-left out of the action counts. The random-legal policy runs inside the
-rollout kernel, 16 steps a launch with the latches in registers.
+Plays full games under a policy and collects the score, max-tile, length
+and per-action distributions. On the fast engine the env auto-resets
+finished boards, so each lane's FIRST completion is latched and its free
+restarts are left out of the action counts; the random-legal policy runs
+inside the rollout kernel, 16 steps a launch with the latches in registers.
+The lax engine plays the classic env (:mod:`tpu2048_torch.env.env`) without
+auto-reset, as plain ops: shaped and quirk envs run there.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from tpu2048_torch.agents import tabular_fast as tabf
 from tpu2048_torch.agents.tabular import QTable
+from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import EnvConfig
 from tpu2048_torch.ops import board as board_ops
@@ -54,17 +56,38 @@ def as_policy(policy) -> Policy:
 
 
 def _in_kernel_only(params, boards, legal_mask):
-    raise TypeError("the random-legal policy is drawn inside the rollout "
-                    "kernel from the eval's bit source: play it through "
-                    "evaluate()")
+    raise TypeError("the random-legal policy without a generator is drawn "
+                    "inside the rollout kernel from the eval's bit source: "
+                    "play it through evaluate() on the fast engine, or give "
+                    "it a generator")
 
 
-def random_legal_policy() -> Policy:
+def random_legal_actions(legal_mask: torch.Tensor,
+                         generator: torch.Generator) -> torch.Tensor:
+    """One uniform draw a lane picks among its legal moves, or among all
+    four where none is legal (as JAX's categorical over equal logits
+    does). Returns ``(B,)`` int32 actions."""
+    legal = legal_mask | ~legal_mask.any(-1, keepdim=True)
+    n = legal.sum(-1, dtype=torch.int32)
+    u = torch.rand(legal.shape[0], generator=generator,
+                   device=legal.device)
+    pick = torch.minimum((u * n).to(torch.int32), n - 1)
+    nth = (legal.cumsum(-1) == pick[:, None] + 1) & legal
+    return nth.to(torch.int8).argmax(-1).to(torch.int32)
+
+
+def _random_legal(generator, boards, legal_mask):
+    return random_legal_actions(legal_mask, generator)
+
+
+def random_legal_policy(generator: torch.Generator = None) -> Policy:
     """Uniform over the legal moves (GameDemo.py:272-285's random mode, with
     the JAX harness's delta: the reference also picks illegal moves).
-    :func:`evaluate` plays it inside the rollout kernel on the eval's bit
-    source; it has no per-step function to call."""
-    return Policy(fn=_in_kernel_only, in_kernel_random=True)
+    :func:`evaluate` on the fast engine plays it inside the rollout kernel
+    on the eval's bit source; with a ``generator`` it also has a per-step
+    form, drawn from that generator (the lax engine, the demo)."""
+    fn = _in_kernel_only if generator is None else _random_legal
+    return Policy(fn=fn, params=generator, in_kernel_random=True)
 
 
 def _argmax_legal(q, legal_mask):
@@ -153,17 +176,86 @@ def evaluate(
 ) -> EvalResult:
     """Play ``num_games`` full games under ``policy``; collect stats.
 
-    ``bits`` is the fast env's bit source (:mod:`tpu2048_torch.env.fast`);
-    the games run on its device. Only the fast engine is ported:
-    ``engine="lax"``, and "auto" on an env the kernel does not implement,
-    raise.
+    ``engine``: "fast" plays the env kernels, "lax" the classic env (the
+    only engine for quirk envs), "auto" picks (``resolve_engine``).
+    ``bits`` is the engine's draw source, and the games run on its device:
+    the fast env's bit source (:mod:`tpu2048_torch.env.fast`), or the
+    classic env's spawn source (:mod:`tpu2048_torch.env.env`) for "lax".
     """
     engine = fastlib.resolve_engine(env_config, engine,
                                     require_auto_reset=False)
-    if engine != "fast":
-        raise NotImplementedError("engine='lax' is not yet ported")
-    return _evaluate_fast(as_policy(policy), num_games, bits, env_config,
-                          batch_size, max_steps)
+    policy = as_policy(policy)
+    if engine == "lax":
+        return _evaluate_lax(policy, num_games, bits, env_config, batch_size,
+                             max_steps)
+    return _evaluate_fast(policy, num_games, bits, env_config, batch_size,
+                          max_steps)
+
+
+def _evaluate_lax(policy: Policy, num_games, source, env_config, batch_size,
+                  max_steps) -> EvalResult:
+    """The classic env without auto-reset: a finished board stays finished,
+    its first completion is latched (score, max tile, length) and its
+    actions no longer count. The host reads "every game is over" once a
+    chunk of ``STEPS_PER_CALL`` steps, as JAX's ``steps_per_call`` does."""
+    env_config = dataclasses.replace(env_config, auto_reset=False)
+    start = time.perf_counter()
+    scores: List[np.ndarray] = []
+    tiles: List[np.ndarray] = []
+    lengths: List[np.ndarray] = []
+    action_counts = np.zeros(4, np.int64)
+    batch_steps = env_steps = 0
+    remaining = num_games
+    while remaining > 0:
+        b = min(batch_size, remaining)
+        state = envlib.reset(env_config, source, b)
+        device = state.board.device
+        actions_range = torch.arange(4, device=device)
+        # Without auto-reset the step's legal mask of the new board is the
+        # next step's: computed once here, then carried.
+        legal = board_ops.legal_moves_mask(state.board)
+        done = torch.zeros(b, dtype=torch.bool, device=device)
+        final_score = torch.zeros(b, dtype=torch.int32, device=device)
+        final_tile = torch.zeros(b, dtype=torch.int32, device=device)
+        final_len = torch.zeros(b, dtype=torch.int32, device=device)
+        act_counts = torch.zeros(4, dtype=torch.int64, device=device)
+        for _ in range(max_steps // STEPS_PER_CALL + 1):
+            for _ in range(STEPS_PER_CALL):
+                actions = policy(state.board, legal)
+                live = ((actions.unsqueeze(-1) == actions_range)
+                        & ~done[:, None])
+                act_counts += live.sum(0)
+                state, ts = envlib.step(env_config, state, actions, source)
+                legal = ts.legal_mask
+                newly = ts.done & ~done
+                final_score = torch.where(newly, state.score, final_score)
+                final_tile = torch.where(newly, ts.max_number, final_tile)
+                final_len = torch.where(newly, ts.episode_steps, final_len)
+                done = done | ts.done
+            batch_steps += STEPS_PER_CALL
+            env_steps += STEPS_PER_CALL * b
+            if bool(done.all()):
+                break
+        # Any game still running at the end records its current standing.
+        final_score = torch.where(done, final_score, state.score)
+        final_tile = torch.where(done, final_tile,
+                                 board_ops.max_tile_value(state.board))
+        final_len = torch.where(done, final_len, state.episode_steps)
+        scores.append(final_score.cpu().numpy())
+        tiles.append(final_tile.cpu().numpy())
+        lengths.append(final_len.cpu().numpy())
+        action_counts += act_counts.cpu().numpy()
+        remaining -= b
+
+    return EvalResult(
+        scores=np.concatenate(scores),
+        max_tiles=np.concatenate(tiles),
+        lengths=np.concatenate(lengths),
+        action_counts=action_counts,
+        batch_steps=batch_steps,
+        env_steps=env_steps,
+        seconds=time.perf_counter() - start,
+    )
 
 
 def _evaluate_fast(policy: Policy, num_games, bits, env_config, batch_size,

@@ -56,9 +56,18 @@ def move(board: torch.Tensor, action: int):
 
 def move_all(board: torch.Tensor):
     """All four moves: ``(4, ..., 4, 4)`` int8 boards, ``(4, ...)`` int32
-    scores and ``(4, ...)`` bool legality."""
-    outs = [move(board, a) for a in range(NUM_ACTIONS)]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    scores and ``(4, ...)`` bool legality.
+
+    The four directions' rows merge in one call on a stacked tensor, so
+    that the number of ops does not grow with the directions (the classic
+    env runs these as plain ops on the card, one launch each)."""
+    frames = torch.stack([_to_left_frame(board, a)
+                          for a in range(NUM_ACTIONS)])
+    merged, row_scores, row_moved = merge_rows_left(frames)
+    boards = torch.stack([_from_left_frame(merged[a], a)
+                          for a in range(NUM_ACTIONS)])
+    return (boards, row_scores.sum(dim=-1, dtype=torch.int32),
+            row_moved.any(dim=-1))
 
 
 def _action_one_hot(action: torch.Tensor) -> torch.Tensor:
@@ -110,6 +119,55 @@ def spawn_at(board: torch.Tensor, empty_idx: torch.Tensor, val: torch.Tensor):
     target = (csum == empty_idx.unsqueeze(-1) + 1) & empty
     new_flat = torch.where(target, val.to(flat.dtype).unsqueeze(-1), flat)
     return new_flat.view(board.shape)
+
+
+def sample_spawn(board: torch.Tensor, pos_u: torch.Tensor,
+                 val_u: torch.Tensor):
+    """A spawn decision for each board from two ``(...,)`` float32
+    uniforms in ``[0, 1)`` (batched ``tpu2048.ops.board.sample_spawn``,
+    which draws them from a key).
+
+    The index is uniform over the ``max(n_empty, 1)`` row-major empty cells
+    (``floor(pos_u * n)``); the exponent is 1 (a "2") where ``val_u < 0.9``,
+    else 2 (a "4"), as the reference's ``add_number`` draws them
+    (Game2048_env.py:16-20). Returns ``(empty_idx, val)``: int32 and int8.
+    """
+    n = (board == 0).flatten(-2).sum(-1, dtype=torch.int32).clamp_min(1)
+    idx = torch.minimum((pos_u * n).to(torch.int32), n - 1)
+    val = torch.where(val_u < 0.9, 1, 2).to(torch.int8)
+    return idx, val
+
+
+def spawn_random_tile(board: torch.Tensor, pos_u: torch.Tensor,
+                      val_u: torch.Tensor) -> torch.Tensor:
+    """:func:`sample_spawn` then :func:`spawn_at`: a 2 (p=0.9) or a 4 on a
+    uniformly drawn empty cell; a full board is returned unchanged."""
+    return spawn_at(board, *sample_spawn(board, pos_u, val_u))
+
+
+def init_board(pos_u: torch.Tensor, val_u: torch.Tensor) -> torch.Tensor:
+    """Fresh ``(B, 4, 4)`` boards of two spawned tiles
+    (Game2048_env.py:11-14): ``pos_u`` and ``val_u`` are ``(2, B)``
+    uniforms, row 0 for the first tile and row 1 for the second."""
+    board = torch.zeros((pos_u.shape[1], 4, 4), dtype=torch.int8,
+                        device=pos_u.device)
+    board = spawn_random_tile(board, pos_u[0], val_u[0])
+    return spawn_random_tile(board, pos_u[1], val_u[1])
+
+
+def board_values(board) -> torch.Tensor:
+    """``(..., 4, 4)`` int32 face values (0 for empty cells)."""
+    e = torch.as_tensor(board).to(torch.int32)
+    return torch.where(e > 0, torch.ones_like(e) << e, 0)
+
+
+def values_to_exponents(values) -> torch.Tensor:
+    """Inverse of :func:`board_values`: face values to int8 exponents,
+    ``floor(log2(v))`` read exactly off the float's exponent (the JAX
+    package's float32 ``log2`` gives 14 for 32768 on the CPU)."""
+    v = torch.as_tensor(values).to(torch.int32)
+    exp = torch.frexp(v.clamp_min(1).to(torch.float32)).exponent - 1
+    return torch.where(v > 0, exp, 0).to(torch.int8)
 
 
 def max_tile_value(board: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Batched DQN actor-learner training driver, the port of
-:mod:`tpu2048.training.dqn` on the fast engine.
+:mod:`tpu2048.training.dqn`.
 
-B envs step in lockstep. Each vector step runs, in order: the kernel-emitted
-legal mask and the boards, epsilon-greedy :func:`select_actions` (one CNN
-forward), one env-step kernel launch (``fast_step`` with the pre-reset board
-and the next legal mask), the dedup rule and the replay insert, the epsilon
-counter, the x0.98 LR hook, and the learner. The learner keeps the
+B envs step in lockstep. Each vector step runs, in order: the legal mask and
+the boards, epsilon-greedy :func:`select_actions` (one CNN forward), one env
+step, the dedup rule and the replay insert, the epsilon counter, the x0.98
+LR hook, and the learner. On the fast engine the env step is one env-step
+kernel launch (``fast_step`` with the pre-reset board and the next legal
+mask, which the next step's actor reads); on the lax engine it is the
+classic env's plain ops (:mod:`tpu2048_torch.env.env`) and the actor
+computes the legal mask from the boards. The learner keeps the
 reference's update ratio with an update debt: each completed episode owes
 ``updates_per_episode`` (100) updates, drained up to
 ``max_updates_per_step`` a vector step, the rest carried; total updates =
@@ -35,7 +38,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -43,6 +46,7 @@ from torch.profiler import record_function
 
 from tpu2048_torch.agents import dqn as dqnlib
 from tpu2048_torch.agents.tabular import one_hot
+from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SIMPLE, EnvConfig
 from tpu2048_torch.ops import board as board_ops
@@ -63,7 +67,8 @@ class DQNTrainConfig:
     agent: dqnlib.DQNConfig = dqnlib.DQNConfig()
     env: EnvConfig = EnvConfig(reward=SIMPLE, terminal_bonus=True)
     num_envs: int = 128
-    engine: str = "auto"  # "auto" or "fast"; the lax engine is not ported
+    # "fast": the env-step kernel; "lax": the classic env; "auto" picks.
+    engine: str = "auto"
     # Learner schedule: None = the reference's update debt (mainDQL:223-
     # 226); an int = that many updates a vector step (ablations, benches).
     updates_per_step: Optional[int] = None
@@ -89,10 +94,13 @@ class DQNTrainConfig:
     seed: int = 0
 
 
+def resolve_engine(config: DQNTrainConfig) -> str:
+    """Pick the actor engine; an explicit "fast" on a quirk env raises."""
+    return fastlib.resolve_engine(config.env, config.engine)
+
+
 def fast_config(config: DQNTrainConfig) -> fastlib.FastEnvConfig:
-    """The env's fast config; raises unless the fast engine can run it."""
-    if fastlib.resolve_engine(config.env, config.engine) != "fast":
-        raise NotImplementedError("engine='lax' is not yet ported")
+    """The fast engine's config of the env (``for_env``)."""
     return fastlib.for_env(config.env)
 
 
@@ -143,17 +151,18 @@ def _load_agent(agent: dqnlib.DQNTrainState, payload: Dict) -> None:
 class DQNLoopState:
     """Everything the training loop carries across chunks.
 
-    ``bits`` feeds the env kernel (``(8, B)`` rows a step) and ``draws``
-    the actor and the sampler (:mod:`tpu2048_torch.agents.dqn`); the
-    counters that steer the host loop are host integers, the running sums
-    device tensors.
+    ``bits`` feeds the env: the env kernel's bit source (``(8, B)`` rows a
+    step) on the fast engine, the classic env's spawn source on the lax
+    engine. ``draws`` feeds the actor and the sampler
+    (:mod:`tpu2048_torch.agents.dqn`). The counters that steer the host
+    loop are host integers, the running sums device tensors.
     """
 
-    env_state: fastlib.FastEnvState
+    env_state: Union[fastlib.FastEnvState, envlib.EnvState]
     dedup: dqnlib.DedupState
     buffer: replaylib.ReplayBuffer
     agent: dqnlib.DQNTrainState
-    bits: fastlib.GeneratorBits
+    bits: Union[fastlib.GeneratorBits, envlib.GeneratorSpawns]
     draws: dqnlib.GeneratorDraws
     episodes_done: int
     env_steps: int
@@ -217,14 +226,19 @@ def init_loop_state(config: DQNTrainConfig, device) -> DQNLoopState:
         int(s) for s in np.random.SeedSequence(config.seed).generate_state(3))
     agent = dqnlib.create_train_state(config.agent, device, agent_seed)
     device = next(agent.model.parameters()).device
-    bits = fastlib.GeneratorBits(env_seed, device)
+    if resolve_engine(config) == "lax":
+        bits = envlib.GeneratorSpawns(env_seed, device)
+        env_state = envlib.reset(config.env, bits, config.num_envs)
+    else:
+        bits = fastlib.GeneratorBits(env_seed, device)
+        env_state = fastlib.fast_reset(bits, config.num_envs,
+                                       fast_config(config))
 
     def zero(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return DQNLoopState(
-        env_state=fastlib.fast_reset(bits, config.num_envs,
-                                     fast_config(config)),
+        env_state=env_state,
         dedup=dqnlib.dedup_init(config.num_envs, device),
         buffer=replaylib.replay_init(config.agent.memory_size, device),
         agent=agent,
@@ -303,29 +317,39 @@ def _trace_rows(rows, episode: int, trace_fn) -> int:
 def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
                  trace: Optional[list] = None) -> float:
     """One vector step with its learner updates, in place; returns the
-    step's epsilon. With a ``trace`` list, env 0's row is appended to it
-    (on the device)."""
+    step's epsilon. ``fcfg`` is the fast config, None on the lax engine.
+    With a ``trace`` list, env 0's row is appended to it (on the
+    device)."""
     acfg = config.agent
     b = config.num_envs
     with record_function("actor"):
-        boards = from_cell_major(st.env_state.boards)
+        if fcfg is None:
+            boards = st.env_state.board
+            legal = board_ops.legal_moves_mask(boards)
+        else:
+            boards = from_cell_major(st.env_state.boards)
+            legal = st.env_state.legal  # kernel-emitted
         eps = dqnlib.epsilon_value(acfg, st.agent.step_counter)
         actions = dqnlib.select_actions(
-            st.agent.model, boards, st.env_state.legal, ~st.dedup.last_saved,
+            st.agent.model, boards, legal, ~st.dedup.last_saved,
             eps, st.draws.select(b))
     with record_function("env_step"):
-        env_state, ts = fastlib.fast_step(fcfg, st.env_state, st.bits,
-                                          actions, need_obs=True,
-                                          need_legal=True)
-        next_boards = from_cell_major(ts.obs)
+        if fcfg is None:
+            env_state, ts = envlib.step(config.env, st.env_state, actions,
+                                        st.bits)
+            next_boards = ts.obs
+        else:
+            env_state, ts = fastlib.fast_step(fcfg, st.env_state, st.bits,
+                                              actions, need_obs=True,
+                                              need_legal=True)
+            next_boards = from_cell_major(ts.obs)
     with record_function("replay_add"):
         save, st.dedup = dqnlib.dedup_mask(st.dedup, boards, next_boards,
                                            ts.done, acfg.dedup)
         replaylib.replay_add(st.buffer, boards, actions, ts.reward, ts.done,
                              next_boards, save)
     if trace is not None:
-        trace.append(_trace_row(actions, st.env_state.legal, ts, save,
-                                boards))
+        trace.append(_trace_row(actions, legal, ts, save, boards))
     st.agent.step_counter += b  # the epsilon counter counts env steps
     # LR hook: x0.98 once per episode that ended with a >= 1024 pre-step
     # board (remember() checks np.max(state), Dqn8:284).
@@ -394,7 +418,7 @@ def train_chunk(config: DQNTrainConfig, state: DQNLoopState,
     """``steps_per_chunk`` vector steps with interleaved learning, in place.
     Returns the state and the last step's epsilon (a float32 value). With a
     ``trace`` list, each step appends env 0's debug row to it."""
-    fcfg = fast_config(config)
+    fcfg = fast_config(config) if resolve_engine(config) == "fast" else None
     eps = None
     for _ in range(config.steps_per_chunk):
         eps = _vector_step(config, fcfg, state, trace)

@@ -1,9 +1,11 @@
 """Batched tabular Q-learning trainer, the port of
-:mod:`tpu2048.training.tabular` on the fast engine.
+:mod:`tpu2048.training.tabular`.
 
-B envs step in lockstep; each step is one epsilon-greedy choice, one
-env-step kernel launch (shaped or simple mode), the targets and the update
-of the table. On the packed table (``table_backend`` ``auto`` or its alias
+B envs step in lockstep; each step is one epsilon-greedy choice, one env
+step, the targets and the update of the table. The fast engine's env step
+is one env-step kernel launch (shaped or simple mode); the lax engine's is
+the classic env's plain ops (:mod:`tpu2048_torch.env.env`), which quirk
+envs need. On the packed table (``table_backend`` ``auto`` or its alias
 ``pallas``) the choice is a bucket gather, the targets another, and the
 update one scatter of the merged bucket images; on the legacy two-array
 table (``legacy``) they are the ops of :mod:`tpu2048_torch.agents.tabular`.
@@ -27,6 +29,7 @@ import torch
 
 from tpu2048_torch.agents import tabular as tab
 from tpu2048_torch.agents import tabular_fast as tabf
+from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SHAPED, EnvConfig
 from tpu2048_torch.ops.step_kernel import from_cell_major
@@ -43,7 +46,8 @@ class TabularTrainConfig:
     batch_size: int = 1024
     total_episodes: int = 200_000  # the reference trained 200k games
     steps_per_chunk: int = 256
-    engine: str = "auto"  # "auto" or "fast"; the lax engine is not ported
+    # "fast": the env-step kernel; "lax": the classic env; "auto" picks.
+    engine: str = "auto"
     # "auto" (or "pallas"): the packed table on the bucket kernels;
     # "legacy": the two-array table. JAX's "xla" and "interpret" name its
     # backends and have no counterpart on the card.
@@ -68,17 +72,20 @@ def resolve_table_backend(config: TabularTrainConfig) -> str:
     raise ValueError(f"unknown table_backend {tb!r}")
 
 
+def resolve_engine(config: TabularTrainConfig) -> str:
+    """Pick the actor engine; an explicit "fast" on a quirk env raises."""
+    return fastlib.resolve_engine(config.env, config.engine)
+
+
 def fast_config(config: TabularTrainConfig) -> fastlib.FastEnvConfig:
-    """The env's fast config; raises unless the fast engine can run it."""
-    if fastlib.resolve_engine(config.env, config.engine) != "fast":
-        raise NotImplementedError("engine='lax' is not yet ported")
+    """The fast engine's config of the env (``for_env``)."""
     return fastlib.for_env(config.env)
 
 
 @dataclasses.dataclass
 class TabularTrainState:
     table: Union[tabf.PackedQTable, tab.QTable]
-    env_state: fastlib.FastEnvState
+    env_state: Union[fastlib.FastEnvState, envlib.EnvState]
     episodes_done: torch.Tensor  # () int32
     env_steps: torch.Tensor  # () int32
     # Aggregates over finished episodes (running, never reset):
@@ -90,12 +97,17 @@ class TabularTrainState:
 
 
 def init_train_state(config: TabularTrainConfig, bits) -> TabularTrainState:
-    """Fresh envs from one draw of ``bits`` and an empty table of the
-    configured backend, on the bit source's device."""
+    """Fresh envs and an empty table of the configured backend, on the
+    device of ``bits``: the fast env's bit source, or on the lax engine the
+    classic env's spawn source."""
     legacy = resolve_table_backend(config) == "legacy"
-    env_state = fastlib.fast_reset(bits, config.batch_size,
-                                   fast_config(config))
-    device = env_state.boards.device
+    if resolve_engine(config) == "lax":
+        env_state = envlib.reset(config.env, bits, config.batch_size)
+        device = env_state.board.device
+    else:
+        env_state = fastlib.fast_reset(bits, config.batch_size,
+                                       fast_config(config))
+        device = env_state.boards.device
     init = tab.qtable_init if legacy else tabf.packed_init
 
     def zero(shape, dtype):
@@ -124,10 +136,12 @@ def _episode_score(st: TabularTrainState, ts) -> torch.Tensor:
 def train_chunk(config: TabularTrainConfig, state: TabularTrainState, bits,
                 draws):
     """Run ``steps_per_chunk`` env steps with learning; ``bits`` feeds the
-    env, ``draws`` the agent. Returns the new state and the last step's
-    epsilon (a float32 tensor). The table is updated in place."""
+    env (see :func:`init_train_state`), ``draws`` the agent. Returns the
+    new state and the last step's epsilon (a float32 tensor). The table is
+    updated in place."""
     agent_cfg = config.agent
     b = config.batch_size
+    lax = resolve_engine(config) == "lax"
     fcfg = fast_config(config)
     legacy = resolve_table_backend(config) == "legacy"
     st = state
@@ -135,16 +149,24 @@ def train_chunk(config: TabularTrainConfig, state: TabularTrainState, bits,
     for _ in range(config.steps_per_chunk):
         epoch = st.episodes_done.to(torch.float32) / b
         eps = tab.epsilon_for_epoch(epoch, agent_cfg)
-        boards = from_cell_major(st.env_state.boards)
+        if lax:
+            boards = st.env_state.board
+        else:
+            boards = from_cell_major(st.env_state.boards)
         if legacy:
             actions, probe = tab.choose_actions_probed(st.table, boards, eps,
                                                        draws)
         else:
             actions, probe = tabf.fast_choose_actions_probed(
                 st.table, boards, eps, draws)
-        env_state, ts = fastlib.fast_step(fcfg, st.env_state, bits, actions,
-                                          need_obs=True)
-        next_boards = from_cell_major(ts.obs)
+        if lax:
+            env_state, ts = envlib.step(config.env, st.env_state, actions,
+                                        bits)
+            next_boards = ts.obs
+        else:
+            env_state, ts = fastlib.fast_step(fcfg, st.env_state, bits,
+                                              actions, need_obs=True)
+            next_boards = from_cell_major(ts.obs)
         if legacy:
             targets = tab.q_learning_targets(st.table, ts.reward, next_boards,
                                              ts.done, agent_cfg.discount)
@@ -172,11 +194,12 @@ def train_chunk(config: TabularTrainConfig, state: TabularTrainState, bits,
     return st, eps
 
 
-def sources(seed: int, device):
-    """The production bit source of the env and draw source of the agent,
-    two generators on ``device`` seeded from ``seed``."""
-    return (fastlib.GeneratorBits(2 * seed, device),
-            tabf.GeneratorDraws(2 * seed + 1, device))
+def sources(seed: int, device, engine: str = "fast"):
+    """The production source of the env (the fast env's bits, or the
+    classic env's spawns for ``engine="lax"``) and draw source of the
+    agent, two generators on ``device`` seeded from ``seed``."""
+    env = envlib.GeneratorSpawns if engine == "lax" else fastlib.GeneratorBits
+    return env(2 * seed, device), tabf.GeneratorDraws(2 * seed + 1, device)
 
 
 def train(config: TabularTrainConfig, device,
@@ -188,7 +211,7 @@ def train(config: TabularTrainConfig, device,
     JAX trainer's keys. With ``save_path`` the final table is written as a
     two-array ``.npz`` (:func:`tpu2048_torch.agents.tabular.save_qtable`).
     """
-    bits, draws = sources(config.seed, device)
+    bits, draws = sources(config.seed, device, resolve_engine(config))
     state = init_train_state(config, bits)
     watchdog = None
     if config.watchdog_timeout > 0:
