@@ -166,9 +166,26 @@ can be timed in one run on one card.
     model`` on that run's weights, and a manual ``GameSession`` driven by
     scripted keys; every lax path but the tabular one launches no kernel.
     Each prints its times beside the fast engine's from the same call.
+19. Data parallel (``replay/sharded.py``, ``parallel/``): the sharded
+    replay (4 shards of 12,500 slots, 600 adds of 128 envs) on the card
+    against the CPU, every array equal after adds, a sample, a priority
+    update and the prune; ``train dqn --replay-shards 4`` through the CLI
+    at full width to its first episode, its ``--resume``, and the same run
+    straight through, whose rows the resumed ones must equal bit for bit
+    (cuDNN set deterministic for the comparisons), its ms a vector step
+    printed chunk by chunk beside phase 13's; ``train dqn --data-parallel
+    1 --coordinator ... --num-processes 1 --process-id 0`` (one NCCL rank)
+    at full width with one update a step against the run without the
+    flags, rows and weights equal bit for bit, and its ``--resume``; the
+    one-rank NCCL all-reduce of the full-width gradients against an
+    update; two gloo ranks sharing the card against one process with two
+    shards (integers equal, parameters within rtol 2e-4 and atol 2e-5, the
+    loss sum within rtol 1e-3; rank 0 alone logs); ``bench --scale 1``
+    (one NCCL rank) beside phase 15's ``bench --train-loop``. Every path
+    runs the step kernel and no other; ranks report their own launches.
 
 Then one JSON line describing the four kernels (the step kernel's launches
-counted over phases 4, 13, 16 and 17, the table kernels' over phases 7
+counted over phases 4, 13, 16, 17 and 19, the table kernels' over phases 7
 and 18), and the result line.
 
 Phase 13's ``train dqn`` also writes env 0's ``--debug-csv`` (the
@@ -2761,6 +2778,345 @@ def phase_lax(sk, tk, torch, device, earlier):
     return launches
 
 
+PAR_SHARDS = 4  # `train dqn --replay-shards`'s count on the card
+PAR_CAPACITY = 50_000  # the `train dqn` default memory, split 4 ways
+PAR_ADDS, PAR_PRUNE = 600, 2  # the shards' rings wrap at ~520 adds
+PAR_NCCL_UPDATES = 1  # `--updates-per-step` of the one-rank NCCL runs
+PAR_ALLREDUCE_CALLS = 20
+PAR_GLOO_CHUNKS = 3
+# The two-rank gloo run: CONFIG_KW's widths with more envs and steps, so
+# that its 2 x 3 x 16 vector steps end episodes and fill the shards.
+PAR_GLOO_KW = dict(features=16, hidden=32, num_blocks=1, envs_per_dp=64,
+                   batch_per_dp=32, steps_per_chunk=16, memory_per_dp=1024,
+                   seed=SEED)
+PAR_PARAM_RTOL, PAR_PARAM_ATOL, PAR_LOSS_RTOL = 2e-4, 2e-5, 1e-3  # JAX's
+
+
+def gloo_rank(config, chunks, log_dir):
+    """One rank of phase 19's two gloo ranks on the card: a probe row
+    through ``JSONLLogger`` (rank 0 alone may write it), then
+    ``run_chunks`` with the parameters."""
+    from tpu2048_torch.metrics.logging import JSONLLogger
+    from tpu2048_torch.parallel import mesh
+    from tpu2048_torch.parallel.testkit import run_chunks
+
+    logger = JSONLLogger(os.path.join(log_dir, f"log_{mesh.rank()}.jsonl"),
+                         echo=False)
+    logger.log({"rank": mesh.rank()})
+    logger.close()
+    return run_chunks(config.replay_shards, 1, chunks, params=True,
+                      config=config)
+
+
+def sharded_replay_equal(torch, device):
+    """Phase 19 (a): the sharded buffer on the card against the CPU, on the
+    same transitions, masks, sample indices and TD errors."""
+    from tpu2048_torch.replay import sharded as rs
+
+    gen = torch.Generator().manual_seed(SEED)
+    bufs = {d: rs.sharded_init(PAR_CAPACITY, PAR_SHARDS, d)
+            for d in ("cpu", device)}
+    per = DQN_ENVS // PAR_SHARDS
+    for _ in range(PAR_ADDS):
+        tr = (torch.randint(0, 12, (DQN_ENVS, 4, 4), generator=gen,
+                            dtype=torch.int8),
+              torch.randint(0, 4, (DQN_ENVS,), generator=gen),
+              torch.randint(-10, 100, (DQN_ENVS,), generator=gen).float(),
+              torch.rand(DQN_ENVS, generator=gen) < 0.02,
+              torch.randint(0, 12, (DQN_ENVS, 4, 4), generator=gen,
+                            dtype=torch.int8),
+              torch.rand(DQN_ENVS, generator=gen) < 0.8)
+        for d, buf in bufs.items():
+            rs.sharded_add(buf, *(x.to(d) for x in tr))
+    sizes = rs.shard_sizes(bufs["cpu"])
+    idx = torch.stack([torch.randint(0, int(n), (64 // PAR_SHARDS,),
+                                     generator=gen) for n in sizes])
+    td = torch.randn(64, generator=gen)
+    out = {}
+    for d, buf in bufs.items():
+        batch, _, w = rs.sharded_sample(buf, 64, 0.0, 1.0, idx.to(d))
+        rs.sharded_update_priorities(buf, idx.to(d), td.to(d))
+        out[d] = (batch, w, rs.sharded_prune(buf, PAR_PRUNE))
+    for k in out["cpu"][0]:
+        if not torch.equal(out[device][0][k].cpu(), out["cpu"][0][k]):
+            fail(f"phase 19: sharded sample {k}: card differs from CPU")
+    c = PAR_CAPACITY // PAR_SHARDS
+    for name in ("boards", "next_boards", "actions", "rewards", "dones",
+                 "priorities", "max_priority", "ptr", "size"):
+        for what, a, b in (("after priorities", bufs[device], bufs["cpu"]),
+                           ("after the prune", out[device][2],
+                            out["cpu"][2])):
+            # Each shard's last row is its trash row: write-only, its
+            # write order free.
+            a, b = getattr(a, name).cpu(), getattr(b, name)
+            if a.dim() > 1:
+                a, b = a[:, :c], b[:, :c]
+            if not torch.equal(a, b):
+                fail(f"phase 19: sharded replay {name} {what}: card "
+                     "differs from CPU")
+    pruned = rs.shard_sizes(out["cpu"][2]).tolist()
+    print(f"phase 19: sharded replay, {PAR_SHARDS} shards of "
+          f"{PAR_CAPACITY // PAR_SHARDS} slots, {PAR_ADDS} adds of "
+          f"{DQN_ENVS} envs ({per} a shard, rings wrapped): add, sample "
+          f"(64 at alpha 0), priorities and the prune of {PAR_PRUNE} "
+          f"episodes a shard equal on the card and the CPU (sizes "
+          f"{sizes.tolist()} -> {pruned})")
+
+
+def rows_after(rows, episodes):
+    return [{k: v for k, v in r.items() if k != "steps_per_s"}
+            for r in rows if r["episodes"] > episodes]
+
+
+def step_ms(rows):
+    return [1e3 * DQN_ENVS / r["steps_per_s"] for r in rows]
+
+
+def parallel_shards_cli(sk, tk, torch, cli_main, read_jsonl, tmp,
+                        dqn_rows):
+    """Phase 19 (b): `train dqn --replay-shards 4` at full width through
+    the CLI to its first episode, its `--resume`, and the same run straight
+    through, which the resumed rows must equal bit for bit."""
+    ck, log = os.path.join(tmp, "shards"), os.path.join(tmp, "shards.jsonl")
+    flags = ["train", "dqn", "--replay-shards", str(PAR_SHARDS), "--seed",
+             str(SEED)]
+    _, counts, wall = run_path(sk, tk, torch, cli_main, flags + [
+        "--episodes", "1", "--checkpoint-dir", ck, "--log", log])
+    rows = read_jsonl(log)
+    last = rows[-1]
+    steps = last["env_steps"] // DQN_ENVS
+    if (counts["step"] != steps or counts["rollout"] or counts["gather"]
+            or counts["scatter"] or not math.isfinite(last["loss"])
+            or last["train_steps"] + last["update_debt"]
+            != 100 * last["episodes"]):
+        fail(f"train dqn --replay-shards: rows {rows}, launches {counts}")
+    _, rcounts, rwall = run_path(sk, tk, torch, cli_main, [
+        "train", "dqn", "--episodes", str(last["episodes"] + 1),
+        "--checkpoint-dir", ck, "--resume", "--log", log])
+    resumed = read_jsonl(log)[len(rows):]
+    straight = os.path.join(tmp, "straight.jsonl")
+    _, scounts, swall = run_path(sk, tk, torch, cli_main, flags + [
+        "--episodes", str(last["episodes"] + 1), "--log", straight])
+    want = rows_after(read_jsonl(straight), last["episodes"])
+    if (not resumed or rows_after(resumed, last["episodes"]) != want
+            or resumed[0]["env_steps"] != last["env_steps"]
+            + DQN_ENVS * DQN_CHUNK
+            or rcounts["step"] != DQN_CHUNK * len(resumed)):
+        fail(f"train dqn --replay-shards --resume: {resumed} against the "
+             f"straight run's {want}, launches {rcounts}")
+    print(f"phase 19: train dqn --replay-shards {PAR_SHARDS}, full width, "
+          f"{DQN_ENVS} envs, batch 64: {len(rows)} chunks to episode "
+          f"{last['episodes']}, {counts['step']} step-kernel launches = "
+          f"{steps} vector steps; {last['train_steps']} updates + "
+          f"{last['update_debt']} owed; {wall:.3f} s; --resume: "
+          f"{len(resumed)} chunk(s), {rcounts['step']} launches, its rows "
+          f"equal the straight run's ({len(want)} rows, loss "
+          f"{resumed[-1]['loss']!r}) bit for bit; {rwall:.3f} s")
+    for label, rs in (("--replay-shards 4", rows + resumed),
+                      ("phase 13 (1 shard)", dqn_rows)):
+        prev = 0
+        for i, (row, ms) in enumerate(zip(rs, step_ms(rs))):
+            upd = (row["train_steps"] - prev) / DQN_CHUNK
+            prev = row["train_steps"]
+            print(f"phase 19:   {label} chunk {i + 1}: {ms:.3f} ms a vector "
+                  f"step, {upd:.2f} updates a step")
+    return counts["step"] + rcounts["step"] + scounts["step"]
+
+
+def allreduce_share(torch, device):
+    """Phase 19 (c): in a one-rank NCCL group, the gradient all-reduce of
+    the full-width network (one flat bucket) beside a learner update at
+    batch 64, by CUDA events: the all-reduce's share of an update, which
+    runs it after its backward."""
+    from tpu2048_torch import bench
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.parallel import mesh
+    from tpu2048_torch.parallel.testkit import free_port
+
+    mesh.distributed_init(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        state, update = bench.learner_update(DQNConfig(memory_size=4096), 64,
+                                             device)
+        update()
+        params = list(state.model.parameters())
+        loss = torch.zeros((), device=device)
+        ar_ms = elapsed_ms(torch, lambda: mesh.average_gradients(params,
+                                                                 loss),
+                           PAR_ALLREDUCE_CALLS)
+        update_ms = elapsed_ms(torch, update, PAR_ALLREDUCE_CALLS)
+    finally:
+        mesh.destroy()
+    grad_bytes = sum(p.numel() * p.element_size() for p in params)
+    print(f"phase 19: one-rank NCCL all-reduce of the full-width gradients "
+          f"({grad_bytes} bytes in one bucket, with its copies in and "
+          f"out): {ar_ms:.4f} ms (CUDA events, {PAR_ALLREDUCE_CALLS} "
+          f"calls); an update at batch 64 {update_ms:.3f} ms without it: "
+          f"the all-reduce is {100 * ar_ms / (update_ms + ar_ms):.1f}% of "
+          f"an update with it")
+    return ar_ms, update_ms
+
+
+def parallel_nccl(sk, tk, torch, cli_main, read_jsonl, tmp):
+    """Phase 19 (c): `train dqn --data-parallel 1 --coordinator ...` (one
+    NCCL rank) at full width against the same run without the flags, bit
+    for bit, then its `--resume` from the rank's checkpoint."""
+    from tpu2048_torch.checkpoint.ckpt import CheckpointManager
+    from tpu2048_torch.parallel.testkit import free_port
+
+    base = ["train", "dqn", "--episodes", "1", "--updates-per-step",
+            str(PAR_NCCL_UPDATES), "--seed", str(SEED)]
+    runs = {}
+    for name, extra in (("nccl", ["--data-parallel", "1", "--coordinator",
+                                  f"127.0.0.1:{free_port()}",
+                                  "--num-processes", "1", "--process-id",
+                                  "0"]),
+                        ("plain", [])):
+        ck, log = os.path.join(tmp, name), os.path.join(tmp, name + ".jsonl")
+        _, counts, wall = run_path(sk, tk, torch, cli_main, base + extra + [
+            "--checkpoint-dir", ck, "--log", log])
+        rows = read_jsonl(log)
+        mgr = CheckpointManager(ck)
+        payload = mgr.read(mgr.latest_step())
+        runs[name] = (rows, counts, wall, payload, ck, extra)
+    (rows, counts, wall, payload, ck, extra) = runs["nccl"]
+    prow, pcounts, pwall, ppayload = runs["plain"][:4]
+    model, pmodel = payload["agent"]["model"], ppayload["agent"]["model"]
+    steps = rows[-1]["env_steps"] // DQN_ENVS
+    if (rows_after(rows, -1) != rows_after(prow, -1)
+            or any(not torch.equal(model[k], pmodel[k]) for k in pmodel)
+            or payload["world"] != 1 or counts["step"] != steps
+            or pcounts["step"] != steps):
+        fail(f"one NCCL rank against no group: rows {rows} / {prow}, "
+             f"launches {counts} / {pcounts}")
+    _, rcounts, rwall = run_path(sk, tk, torch, cli_main, base[:2] + [
+        "--episodes", str(rows[-1]["episodes"] + 1), "--data-parallel",
+        "1", "--coordinator", f"127.0.0.1:{free_port()}",
+        "--num-processes", "1", "--process-id", "0", "--checkpoint-dir",
+        ck, "--resume", "--log", os.path.join(tmp, "nccl.jsonl")])
+    resumed = read_jsonl(os.path.join(tmp, "nccl.jsonl"))[len(rows):]
+    if (not resumed or resumed[0]["env_steps"]
+            != rows[-1]["env_steps"] + DQN_ENVS * DQN_CHUNK
+            or rcounts["step"] != DQN_CHUNK * len(resumed)):
+        fail(f"one NCCL rank --resume: {resumed}, launches {rcounts}")
+    ms, pms = step_ms(rows), step_ms(prow)
+    print(f"phase 19: train dqn --data-parallel 1 --coordinator (one NCCL "
+          f"rank), full width, --updates-per-step {PAR_NCCL_UPDATES}: "
+          f"{len(rows)} chunks to episode {rows[-1]['episodes']}, "
+          f"{counts['step']} step-kernel launches; rows and the "
+          f"checkpoint's weights equal the run without the flags bit for "
+          f"bit; {wall:.3f} s against {pwall:.3f} s; ms a vector step "
+          f"(chunks with updates) {fmt_ms(ms[1:])} against "
+          f"{fmt_ms(pms[1:])}; --resume from the rank's checkpoint: "
+          f"{len(resumed)} chunk(s), {rcounts['step']} launches, "
+          f"{rwall:.3f} s")
+    return counts["step"] + pcounts["step"] + rcounts["step"]
+
+
+def parallel_gloo(torch, device, tmp):
+    """Phase 19 (d): two gloo ranks sharing the card against one process on
+    the card with two replay shards."""
+    from tpu2048_torch.parallel.testkit import chunk_config, run_chunks
+    from tpu2048_torch.parallel.testkit import spawn_ranks
+
+    config = chunk_config(2, **PAR_GLOO_KW)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, functools.partial(gloo_rank, config,
+                                             PAR_GLOO_CHUNKS, tmp),
+                        backend="gloo", device="cuda")
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = run_chunks(2, 1, PAR_GLOO_CHUNKS, params=True, config=config,
+                     device=device)
+    one_wall = time.perf_counter() - t0
+    got = ranks[0]
+    worst = 0.0
+    for k, w in one["params"].items():
+        g = got["params"][k].to(w.device)
+        if not torch.allclose(g, w, rtol=PAR_PARAM_RTOL,
+                              atol=PAR_PARAM_ATOL):
+            fail(f"phase 19: two gloo ranks, parameter {k} differs beyond "
+                 f"rtol {PAR_PARAM_RTOL}, atol {PAR_PARAM_ATOL}")
+        worst = max(worst, (g - w).abs().max().item())
+    if (any(got[k] != one[k] for k in ("env_steps", "episodes",
+                                       "train_steps", "eps"))
+            or any(r[k] != got[k] for r in ranks
+                   for k in ("env_steps", "episodes", "train_steps"))
+            or abs(got["loss_sum"] - one["loss_sum"])
+            > PAR_LOSS_RTOL * abs(one["loss_sum"])
+            or not (os.path.exists(os.path.join(tmp, "log_0.jsonl"))
+                    and not os.path.exists(os.path.join(tmp, "log_1.jsonl")))
+            or not all(r["launches"] > 0 for r in ranks)):
+        digest = [{k: v for k, v in r.items() if k != "params"}
+                  for r in ranks + [one]]
+        fail(f"phase 19: two gloo ranks {digest[:2]} against one process "
+             f"{digest[2]}")
+    steps = config.steps_per_chunk * PAR_GLOO_CHUNKS
+    print(f"phase 19: two gloo ranks sharing the card (features "
+          f"{config.agent.features}, float32, dropout 0, {config.num_envs} "
+          f"envs, batch {config.train_batch}, 2 shards, {steps} vector "
+          f"steps): integers equal one process with 2 shards (env_steps "
+          f"{got['env_steps']}, episodes {got['episodes']}, updates "
+          f"{got['train_steps']}), parameters within {worst:.3g} (rtol "
+          f"{PAR_PARAM_RTOL}, atol {PAR_PARAM_ATOL}), loss sum "
+          f"{got['loss_sum']!r} against {one['loss_sum']!r}; rank 0 alone "
+          f"wrote its log row; step-kernel launches {[r['launches'] for r in ranks]} "
+          f"on the ranks, {one['launches']} in one process; ms a vector "
+          f"step (host clock over the chunks, synchronised) "
+          f"{fmt_ms([1e3 * r['seconds'] / steps for r in ranks])} on the "
+          f"ranks against {1e3 * one['seconds'] / steps:.4f} in one "
+          f"process; {wall:.3f} s for the ranks' call (spawn and start "
+          f"included), {one_wall:.3f} s for one process's")
+    return sum(r["launches"] for r in ranks) + one["launches"]
+
+
+def parallel_scale(sk, tk, torch, cli_main, loop_row):
+    """Phase 19 (e): `bench --scale 1` on the card (one NCCL rank)."""
+    text, counts, wall = run_path(sk, tk, torch, cli_main,
+                                  ["bench", "--scale", "1"])
+    row = json.loads(text.strip().splitlines()[-1])
+    if (row["metric"] != "dp_scaling_env_steps_per_s_per_device"
+            or row["devices"] != 1 or not row["value"] > 0
+            or row.get("simulated") or any(counts.values())
+            or row["launches"] != [row["steps_per_chunk"] * row["chunks"]]
+            or row["warm_launches"] != [row["steps_per_chunk"]]):
+        fail(f"bench --scale 1: {row}")
+    print(f"phase 19: bench --scale 1: {json.dumps(row)}; {wall:.3f} s for "
+          f"the CLI call (the rank's start included); beside bench "
+          f"--train-loop (phase 15): {loop_row['value']:.1f} env-steps/s, "
+          f"{loop_row['ms_per_step']:.3f} ms a step")
+    # The rank's counter, read around its warm chunk and its timed ones.
+    return row["warm_launches"][0] + row["launches"][0]
+
+
+def phase_parallel(sk, tk, torch, device, dqn_rows, loop_row):
+    """Phase 19, data parallel; returns the step kernel's launches in its
+    paths (the ranks' own counts included)."""
+    from tpu2048_torch.cli.main import main as cli_main
+    from tpu2048_torch.metrics.logging import read_jsonl
+
+    t0 = time.perf_counter()
+    sharded_replay_equal(torch, device)
+    launches = 0
+    deterministic = torch.backends.cudnn.deterministic
+    # Two runs compared bit for bit need the same cuDNN algorithms.
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches += parallel_shards_cli(sk, tk, torch, cli_main,
+                                            read_jsonl, tmp, dqn_rows)
+        with tempfile.TemporaryDirectory() as tmp:
+            launches += parallel_nccl(sk, tk, torch, cli_main, read_jsonl,
+                                      tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    allreduce_share(torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += parallel_gloo(torch, device, tmp)
+    launches += parallel_scale(sk, tk, torch, cli_main, loop_row)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s of wall time")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2818,7 +3174,7 @@ def main():
                                         ROLLOUT_TIMING_CASES)[0]
     dqn_launches, dqn_rows = phase_dqn_path(sk, tk, torch, device)
     phase_dqn_narrow(torch, device)
-    phase_dqn_benches(sk, tk, torch)
+    _, loop_row = phase_dqn_benches(sk, tk, torch)
     phase_fused_forward(torch, device)
     phase_fused_learner(torch, device)
     phase_dqn_narrow(torch, device, fused=True)
@@ -2828,6 +3184,8 @@ def main():
     lax_launches = phase_lax(sk, tk, torch, device, dict(
         packed_rows=packed_rows, random_fast=random_fast,
         greedy_fast=greedy_fast, dqn_rows=dqn_rows))
+    parallel_launches = phase_parallel(sk, tk, torch, device, dqn_rows,
+                                       loop_row)
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -2849,7 +3207,7 @@ def main():
             "source": "tpu2048_torch/csrc/step_kernel.cu",
             "replaces": "tpu2048/ops/pallas_step.py:308",
             "launches": launches + dqn_launches + fused_launches
-            + legacy_launches,
+            + legacy_launches + parallel_launches,
             "max_abs_err": max_err,
             "ms": main_row["ms"],
             "graph_ms": main_row["graph_ms"],

@@ -3,12 +3,14 @@ line with the rollout bench's keys (and no ``vs_baseline``, a ratio to a TPU
 target), the tabular, learner and train-loop benches' lines (narrow
 networks), and the mode not yet ported."""
 
+import functools
 import json
 
 import pytest
 
 from tpu2048_torch import bench
 from tpu2048_torch.agents.dqn import DQNConfig
+from tpu2048_torch.cli import main as cli
 from tpu2048_torch.cli.main import main
 
 
@@ -65,9 +67,28 @@ def test_train_loop_bench_on_the_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--scale", "1,2"]])
-def test_bench_modes_not_yet_ported(flags, capsys):
-    assert main(["bench", "--cpu", *flags]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_bench_modes_not_yet_ported(flags, monkeypatch, capsys):
+    """Every bench mode of the JAX package runs: ``bench --scale`` on gloo
+    ranks on the CPU prints a row a rank count, each stamped
+    ``"simulated": true`` (JAX's ``tests/test_sharding.py:213``): its
+    efficiency checks the program, not a card's scaling. On the card it
+    needs a card a rank."""
+    monkeypatch.setattr(bench, "scale_main", functools.partial(
+        bench.scale_main, envs_per_rank=16, chunks=1, steps_per_chunk=4))
+    assert main(["bench", "--cpu", *flags]) == 0
+    rows = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    assert [r["devices"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["metric"] == "dp_scaling_env_steps_per_s_per_device"
+        assert r["simulated"] is True and r["card"] == "cpu"
+        assert r["value"] > 0 and r["launches"] == [0] * r["devices"]
+        assert r["warm_launches"] == [0] * r["devices"]
+        assert (r["envs_per_rank"], r["steps_per_chunk"]) == (16, 4)
+    assert rows[0]["efficiency"] == 1.0
+    monkeypatch.setattr(cli, "_cards", lambda: 1)
+    assert main(["bench", *flags]) == 2
+    assert "needs one card a rank" in capsys.readouterr().err
 
 
 def test_bench_steps_must_fill_whole_windows():

@@ -377,12 +377,7 @@ def test_cli_warm_start_and_stop_at_tile(tmp_path, capsys):
     assert rc == 2
 
 
-@pytest.mark.parametrize("flags", [["--replay-shards", "2"],
-                                   ["--data-parallel", "2"],
-                                   ["--model-parallel", "2"],
-                                   ["--coordinator", "localhost:1234"],
-                                   ["--num-processes", "2"],
-                                   ["--process-id", "0"]])
+@pytest.mark.parametrize("flags", [["--model-parallel", "2"]])
 def test_cli_train_dqn_refuses_what_is_not_ported(flags, capsys):
     assert main(["train", "dqn", "--cpu", *flags]) == 2
     assert "not yet ported" in capsys.readouterr().err

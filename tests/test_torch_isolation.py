@@ -35,6 +35,8 @@ def test_importing_the_port_loads_no_jax_and_no_tpu2048():
         "tpu2048_torch.utils.watchdog", "tpu2048_torch.utils.debug",
         "tpu2048_torch.env.env", "tpu2048_torch.env.parity",
         "tpu2048_torch.eval.demo", "tpu2048_torch.eval.gui",
+        "tpu2048_torch.parallel.mesh", "tpu2048_torch.parallel.testkit",
+        "tpu2048_torch.replay.sharded",
     } <= set(modules)
     code = (
         "import importlib, sys\n"

@@ -25,7 +25,8 @@ functions over it:
 A draw source has two methods: ``select(b)`` returns ``(explore_u (B,)
 f32, rand_any (B,) int32, legal_u (B,) f32)`` on the device of the boards,
 and ``indices(buffer, batch, alpha)`` returns ``(batch,)`` slots of the
-buffer to sample.
+buffer to sample (``(S, batch/S)`` of a sharded buffer's shards from
+:class:`ShardedDraws`, one source a shard).
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ import torch
 
 from tpu2048_torch.agents.tabular import _first_true
 from tpu2048_torch.models import dqn as dqn_model
+from tpu2048_torch.parallel.mesh import ShardedSource
 from tpu2048_torch.replay import buffer as replaylib
+from tpu2048_torch.replay import sharded
 
 ADAM_EPS = 1e-7  # keras Adam's epsilon, which the reference compiles with
 SelectDraws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -178,6 +181,24 @@ class GeneratorDraws:
         return replaylib.sample_indices(buffer, batch, alpha, self.generator)
 
 
+class ShardedDraws(ShardedSource):
+    """Draw source of lane and replay shards: shard s draws the actor's
+    draws of its lanes ``[s B/S, (s+1) B/S)`` and the ``batch/S`` sample
+    indices of its replay shard from its own source (a
+    :class:`GeneratorDraws` keyed by the shard). ``indices`` returns them as
+    ``(S, batch/S)``."""
+
+    def select(self, b: int) -> SelectDraws:
+        parts = [src.select(self.per_shard(b)) for src in self.sources]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    def indices(self, buffer, batch: int, alpha: float) -> torch.Tensor:
+        s = len(self.sources)
+        return torch.stack([
+            src.indices(sharded.shard(buffer, i), batch // s, alpha)
+            for i, src in enumerate(self.sources)])
+
+
 def select_actions(model, boards, legal_mask, restrict_to_legal,
                    epsilon: float, draws: SelectDraws) -> torch.Tensor:
     """Batched epsilon-greedy action selection.
@@ -229,9 +250,13 @@ def dqn_targets(config: DQNConfig, target, batch) -> torch.Tensor:
         1.0 - batch["done"].to(torch.float32))
 
 
-def train_step(config: DQNConfig, state: DQNTrainState, batch):
+def train_step(config: DQNConfig, state: DQNTrainState, batch,
+               grad_reduce=None):
     """One gradient update on a sampled batch (Dqn8:351-400), in place.
 
+    With ``grad_reduce`` (data parallel: :func:`tpu2048_torch.parallel.
+    mesh.average_gradients`), ``grad_reduce(parameters, loss)`` averages the
+    gradients over the ranks before Adam and returns the mean loss.
     Returns ``(loss, td_errors)``: the loss as a () tensor and the
     per-sample |TD| (B,), both without gradient.
     """
@@ -246,6 +271,8 @@ def train_step(config: DQNConfig, state: DQNTrainState, batch):
     loss = ((targets - q_taken) ** 2).mean() / q.shape[-1]
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if grad_reduce is not None:
+        loss = grad_reduce(model.parameters(), loss)
     state.optimizer.step()
     state.train_steps += 1
     return loss.detach(), (targets - q_taken.detach()).abs()

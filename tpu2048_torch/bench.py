@@ -9,13 +9,15 @@ inside the kernel. ``tabular_main`` times the tabular training chunk (shaped
 fast env, packed hashed Q-table, the step, gather and scatter kernels).
 ``learner_main`` times the DQN learner's updates at full width, and
 ``train_loop_main`` the DQN training chunk's actor side (CNN policy, step
-kernel, dedup, replay insert) with no updates.
+kernel, dedup, replay insert) with no updates. ``scale_main`` times the
+whole DQN training chunk data parallel over 1, 2, ... ranks (one line a
+rank count).
 
 Each warms up with the same work it then times, and fences the timed run by
 synchronizing the device and reading a result on the host. Each line names
 the card and its power limit (``nvidia-smi``), or ``"cpu"``. Run them as
-``python -m tpu2048_torch bench [--tabular | --learner | --train-loop]
-[--cpu]``.
+``python -m tpu2048_torch bench [--tabular | --learner | --train-loop |
+--scale 1,2,...] [--cpu]``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ TABULAR_STEPS_PER_CHUNK = 256
 TABULAR_TIMED_CHUNKS = 4
 # The JAX train-loop bench's chunk: 64 steps, no updates.
 TRAIN_LOOP_STEPS_PER_CHUNK = 64
+# The JAX scaling bench's chunk: 32 steps with one update each.
+SCALE_STEPS_PER_CHUNK = 32
+# Its efficiency target, BASELINE.md's 85% of linear.
+SCALE_TARGET = 0.85
 
 
 def card_name(device: torch.device) -> str:
@@ -160,6 +166,7 @@ def learner_update(acfg, batch: int, device: torch.device):
     device tensor)."""
     from tpu2048_torch.agents import dqn as dqnlib
     from tpu2048_torch.replay import buffer as replaylib
+    from tpu2048_torch.replay import sharded
 
     state = dqnlib.create_train_state(acfg, device, 0)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -168,8 +175,8 @@ def learner_update(acfg, batch: int, device: torch.device):
     def randint(high, shape):
         return torch.randint(0, high, shape, generator=gen, device=device)
 
-    buf = replaylib.replay_init(acfg.memory_size, device)
-    replaylib.replay_add(
+    buf = sharded.sharded_init(acfg.memory_size, 1, device)
+    sharded.sharded_add(
         buf, randint(12, (n_fill, 4, 4)), randint(4, (n_fill,)),
         torch.rand(n_fill, generator=gen, device=device),
         torch.zeros(n_fill, dtype=torch.bool, device=device),
@@ -177,7 +184,7 @@ def learner_update(acfg, batch: int, device: torch.device):
         torch.ones(n_fill, dtype=torch.bool, device=device))
 
     def update():
-        sample, _, _ = replaylib.replay_sample(
+        sample, _, _ = sharded.sharded_sample(
             buf, batch, acfg.alpha, acfg.beta,
             replaylib.sample_indices(buf, batch, acfg.alpha, gen))
         return dqnlib.train_step(acfg, state, sample)[0]
@@ -272,3 +279,95 @@ def train_loop_main(envs: int = 128, chunks: int = 8,
     }
     print(json.dumps(row))
     return row
+
+
+def scale_config(n: int, envs_per_rank: int = 256,
+                 steps_per_chunk: int = SCALE_STEPS_PER_CHUNK):
+    """The scaling bench's train config over ``n`` ranks (JAX's
+    ``scale_main``): a tiny float32 CNN (features 32, hidden 32, 1 block),
+    ``envs_per_rank`` envs, 32 samples, 4,096 replay slots and one replay
+    shard a rank, one update a vector step, 32 steps a chunk."""
+    from tpu2048_torch.agents.dqn import DQNConfig
+    from tpu2048_torch.training import dqn as dtrain
+
+    return dtrain.DQNTrainConfig(
+        agent=DQNConfig(features=32, hidden=32, num_blocks=1, bf16=False,
+                        dropout=0.0, memory_size=4096 * n),
+        num_envs=envs_per_rank * n, updates_per_step=1, train_batch=32 * n,
+        steps_per_chunk=steps_per_chunk, replay_shards=n)
+
+
+def _scale_rank(n: int, envs_per_rank: int, chunks: int,
+                steps_per_chunk: int) -> dict:
+    """One rank of :func:`scale_main`: a warm chunk, then ``chunks`` timed,
+    all ranks starting and ending at barriers."""
+    from tpu2048_torch.parallel import mesh
+    from tpu2048_torch.training import dqn as dtrain
+
+    device = mesh.local_device()
+    config = scale_config(n, envs_per_rank, steps_per_chunk)
+    state = dtrain.init_loop_state(config, device)
+    start = sk.fused_env_step.launches
+    dtrain.train_chunk(config, state)
+    _sync(device)
+    mesh.barrier()
+    before = sk.fused_env_step.launches
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        dtrain.train_chunk(config, state)
+    int(state.buffer.size.sum())
+    _sync(device)
+    mesh.barrier()
+    return {"seconds": time.perf_counter() - t0,
+            "warm_launches": before - start,
+            "launches": sk.fused_env_step.launches - before,
+            "train_steps": state.agent.train_steps}
+
+
+def scale_main(rank_counts, envs_per_rank: int = 256, chunks: int = 4,
+               device: Optional[str] = None,
+               steps_per_chunk: int = SCALE_STEPS_PER_CHUNK) -> list:
+    """Data-parallel scaling of the whole DQN training chunk (the env-step
+    kernel on each rank's lanes, sharded replay, an all-reduced update),
+    the JAX package's ``scale_main``: for each n, n ranks
+    (:func:`tpu2048_torch.parallel.testkit.spawn_ranks`: NCCL a card each,
+    gloo on the CPU) run one warm and ``chunks`` timed chunks of
+    :func:`scale_config`. One JSON line a count: env-steps/s a rank, the
+    efficiency against the first count's and its ratio to the 85% target;
+    rows from gloo ranks on the CPU are marked ``"simulated": true`` (they
+    check the program, not a card's scaling). Returns the rows."""
+    import functools
+
+    from tpu2048_torch.parallel.testkit import spawn_ranks
+
+    device = resolve_device(device)
+    base = None
+    rows = []
+    for n in rank_counts:
+        ranks = spawn_ranks(n, functools.partial(
+            _scale_rank, n, envs_per_rank, chunks, steps_per_chunk),
+            device=device)
+        seconds = max(r["seconds"] for r in ranks)
+        per_rank = envs_per_rank * steps_per_chunk * chunks / seconds
+        base = base or per_rank
+        row = {
+            "metric": "dp_scaling_env_steps_per_s_per_device",
+            "devices": n,
+            "value": per_rank,
+            "unit": "steps/s/device",
+            "efficiency": per_rank / base,
+            "vs_baseline": per_rank / base / SCALE_TARGET,
+            "envs_per_rank": envs_per_rank,
+            "steps_per_chunk": steps_per_chunk,
+            "chunks": chunks,
+            "seconds": seconds,
+            "updates": ranks[0]["train_steps"],
+            "launches": [r["launches"] for r in ranks],
+            "warm_launches": [r["warm_launches"] for r in ranks],
+        }
+        if device.type == "cpu":
+            row["simulated"] = True
+        row["card"] = card_name(device)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows

@@ -12,6 +12,15 @@ save leaves the previous checkpoint whole.
 Layout of the directory: ``steps/<episode>/state.pt`` (the newest
 ``max_to_keep`` are kept) and ``named/<name>/state.pt`` (milestone tiers
 ``tile_<tile>_ep<episode>`` and the rollback ``block_checkpoint``).
+
+Data parallel (:mod:`tpu2048_torch.parallel.mesh`), every rank saves
+together. Rank r > 0 writes its own part (the state's ``rank_part()``),
+``rank<r>.pt`` in the same directory: its lanes' env state and dedup caches, its replay shards, its
+generators (env, draws, dropout) and its running sums. After a barrier rank
+0 writes ``state.pt``, its whole state with the replicated agent and
+counters, last: a step counts (``all_steps``) only once it is complete. A
+rank reads ``state.pt`` and its own part. A checkpoint is resumed at the
+world size and shard count that wrote it (the loop state checks them).
 """
 
 from __future__ import annotations
@@ -22,19 +31,53 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from tpu2048_torch.parallel import mesh
+
 STATE_FILE = "state.pt"
 
 
-def _write(path: str, payload: Dict) -> None:
+def _rank_file(rank: int) -> str:
+    return STATE_FILE if rank == 0 else f"rank{rank}.pt"
+
+
+def _write(path: str, payload: Dict, name: str = STATE_FILE) -> None:
     os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    tmp = os.path.join(path, name + ".tmp")
     torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    os.replace(tmp, os.path.join(path, name))
 
 
-def _read(path: str, mmap: bool = False) -> Dict:
-    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+def _read(path: str, mmap: bool = False, name: str = STATE_FILE) -> Dict:
+    return torch.load(os.path.join(path, name), map_location="cpu",
                       weights_only=True, mmap=mmap)
+
+
+def _save(path: str, state: Any) -> None:
+    """Every rank's part of ``state`` into ``path`` (rank r > 0's
+    ``state.rank_part()``), rank 0's ``state.state_dict()`` last."""
+    rank = mesh.rank()
+    if rank:
+        _write(path, state.rank_part(), _rank_file(rank))
+    mesh.barrier()
+    if rank == 0:
+        _write(path, state.state_dict())
+    mesh.barrier()
+
+
+def _load(path: str) -> Dict:
+    """This rank's payload from ``path``: ``state.pt``, overlaid on a rank
+    r > 0 with its own part (``state.pt`` is mapped, so only its
+    replicated part is read there)."""
+    rank = mesh.rank()
+    if rank == 0:
+        return _read(path)
+    payload = dict(_read(path, mmap=True))
+    name = _rank_file(rank)
+    if not os.path.isfile(os.path.join(path, name)):
+        raise ValueError(f"{path} holds no part of rank {rank}: it was "
+                         f"written by {payload.get('world', 1)} rank(s)")
+    payload.update(_read(path, name=name))
+    return payload
 
 
 class CheckpointManager:
@@ -51,17 +94,18 @@ class CheckpointManager:
         return os.path.join(self.directory, "steps", str(int(step)))
 
     def save(self, step: int, state: Any) -> None:
-        """Write ``state.state_dict()`` as step ``step``; drop the oldest
-        steps beyond ``max_to_keep``."""
-        _write(self._step_path(step), state.state_dict())
+        """Write ``state.state_dict()`` as step ``step`` (every rank of a
+        process group calls it); rank 0 drops the oldest steps beyond
+        ``max_to_keep``."""
+        _save(self._step_path(step), state)
         steps = self.all_steps()
-        if self.max_to_keep is not None:
+        if self.max_to_keep is not None and mesh.is_primary_host():
             for old in steps[:-self.max_to_keep]:
                 shutil.rmtree(self._step_path(old))
 
     def read(self, step: int) -> Dict:
-        """The payload of step ``step``, on the CPU."""
-        return _read(self._step_path(step))
+        """This rank's payload of step ``step``, on the CPU."""
+        return _load(self._step_path(step))
 
     def restore(self, step: int, state: Any) -> Any:
         """Load step ``step`` into ``state`` (in place); returns it."""
@@ -87,10 +131,10 @@ class CheckpointManager:
     def save_named(self, name: str, state: Any) -> None:
         """Write ``state`` as ``name``, replacing an earlier one (named
         checkpoints roll, as the reference's block_checkpoint does)."""
-        _write(self._named_path(name), state.state_dict())
+        _save(self._named_path(name), state)
 
     def read_named(self, name: str) -> Dict:
-        return _read(self._named_path(name))
+        return _load(self._named_path(name))
 
     def restore_named(self, name: str, state: Any) -> Any:
         state.load_state_dict(self.read_named(name))

@@ -15,20 +15,26 @@ lax`` plays (and trains) on the classic env instead of the env kernels.
 in the terminal and ``gui`` in a Tk window, each printing its stats as
 JSON. ``python -m tpu2048_torch bench [--tabular | --learner |
 --train-loop]`` prints one JSON line of throughput
-(:mod:`tpu2048_torch.bench`). ``plot --log
+(:mod:`tpu2048_torch.bench`), ``bench --scale 1,2,...`` one a rank count.
+``train dqn --replay-shards S`` shards the run's envs and replay in one
+process; ``--data-parallel N`` runs N ranks of a process group
+(:mod:`tpu2048_torch.parallel`), spawned here or, with ``--coordinator``,
+``--num-processes`` and ``--process-id``, one a process. ``plot --log
 m.jsonl --out m.png`` draws the training plot and ``analyze --log m.jsonl``
 prints the run's milestones. ``--cpu``, before or after the subcommand,
 runs on the CPU instead. Flag names and defaults are the JAX CLI's;
 checkpoints are the port's own torch files
 (:mod:`tpu2048_torch.checkpoint.ckpt`), and a params ``.npz``
 (:mod:`tpu2048_torch.checkpoint.params`) carries weights from the JAX
-package. Flags of parts not yet ported exit with code 2.
+package. Flags of parts not yet ported (``--model-parallel`` above 1)
+exit with code 2.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -84,7 +90,9 @@ def _plot_refusal(args) -> int:
 
 def _save_run_config(args, directory: str) -> None:
     """Persist the model- and env-shaping flags next to the checkpoints, so
-    that eval and a resume rebuild the same state without repeating them."""
+    that eval and a resume rebuild the same state without repeating them.
+    The file is written beside its place and renamed into it: the other
+    ranks of a resumed group read it meanwhile."""
     keys = [
         "gamma", "epsilon", "epsilon_min", "epsilon_decay", "batch", "envs",
         "updates_per_step", "updates_per_episode", "max_updates_per_step",
@@ -94,8 +102,10 @@ def _save_run_config(args, directory: str) -> None:
     ]
     payload = {k: getattr(args, k) for k in keys if hasattr(args, k)}
     os.makedirs(directory, exist_ok=True)
-    with open(os.path.join(directory, "config.json"), "w") as fh:
+    path = os.path.join(directory, "config.json")
+    with open(path + ".tmp", "w") as fh:
         json.dump(payload, fh, indent=2)
+    os.replace(path + ".tmp", path)
 
 
 def _user_specified(args, dest: str) -> bool:
@@ -181,18 +191,35 @@ def cmd_train(args) -> int:
 
 
 def _dqn_refusal(args) -> int:
-    """Exit 2 for the flags of parts not yet ported; 0 when none is set."""
-    refused = (
-        ("--replay-shards other than 1", args.replay_shards != 1),
-        ("--data-parallel above 1", args.data_parallel > 1),
-        ("--model-parallel above 1", args.model_parallel > 1),
-        ("--coordinator", args.coordinator),
-        ("--num-processes", args.num_processes is not None),
-        ("--process-id", args.process_id is not None),
-    )
-    for what, on in refused:
-        if on:
-            return _not_ported(what)
+    """Exit 2 for what cannot run: tensor parallelism (not yet ported), a
+    process group whose flags disagree, replay shards that do not follow
+    the data-parallel ranks; and ``--plot-every`` without matplotlib.
+    ``--replay-shards`` 1 is raised to ``--data-parallel`` (one shard a
+    rank), as the JAX CLI does, before anything is saved."""
+    if args.model_parallel > 1:
+        return _not_ported("--model-parallel above 1")
+    dp = args.data_parallel
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            print("--coordinator needs --num-processes and --process-id",
+                  file=sys.stderr)
+            return 2
+        if dp != args.num_processes:
+            print(f"--data-parallel {dp} must equal --num-processes "
+                  f"{args.num_processes} (one rank a process)",
+                  file=sys.stderr)
+            return 2
+    elif args.num_processes is not None or args.process_id is not None:
+        print("--num-processes and --process-id need --coordinator",
+              file=sys.stderr)
+        return 2
+    if dp > 1 and args.replay_shards % dp:
+        if args.replay_shards != 1:
+            print(f"--replay-shards {args.replay_shards} must be a multiple "
+                  f"of --data-parallel {dp}", file=sys.stderr)
+            return 2
+        # One replay shard a rank keeps transitions on their rank.
+        args.replay_shards = dp
     return _plot_refusal(args)
 
 
@@ -226,6 +253,7 @@ def _dqn_config(args):
         max_updates_per_step=args.max_updates_per_step,
         train_batch=args.batch,
         steps_per_chunk=args.steps_per_chunk,
+        replay_shards=args.replay_shards,
         checkpoint_episodes=args.checkpoint_every,
         rollback=args.rollback,
         rollback_store=args.rollback_store,
@@ -243,25 +271,57 @@ def cmd_train_dqn(args) -> int:
     rc = _dqn_refusal(args)
     if rc:
         return rc
+    from tpu2048_torch.parallel import mesh
+    from tpu2048_torch.parallel.testkit import spawn_ranks
+
+    if args.resume and args.checkpoint_dir:
+        # A resumed run keeps the shapes and the engine it was started
+        # with.
+        args = _load_run_config(args, args.checkpoint_dir)
+        args.engine = _restore_config(args, args.checkpoint_dir).engine
+    primary = not args.coordinator or args.process_id == 0
+    if args.checkpoint_dir and primary:
+        _save_run_config(args, args.checkpoint_dir)
+    device = "cpu" if args.cpu else None
+    if args.coordinator:
+        # This process is one rank; logging waits for the group (rank 0
+        # alone writes).
+        mesh.distributed_init(args.coordinator, args.num_processes,
+                              args.process_id, device=device)
+        try:
+            return _train_dqn_rank(args)
+        finally:
+            mesh.destroy()
+    if args.data_parallel > 1:
+        if not args.cpu and _cards() < args.data_parallel:
+            print(f"--data-parallel {args.data_parallel} needs one card a "
+                  f"rank; this machine has {_cards()} (gloo ranks: "
+                  "--cpu)", file=sys.stderr)
+            return 2
+        return max(spawn_ranks(args.data_parallel, functools.partial(
+            _train_dqn_rank, args), device=device))
+    return _train_dqn_rank(args)
+
+
+def _cards() -> int:
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _train_dqn_rank(args) -> int:
+    """``train dqn`` on this process: the single process, or one rank of a
+    process group (its device is the group's)."""
     from tpu2048_torch.checkpoint.ckpt import CheckpointManager
     from tpu2048_torch.metrics.logging import CSVLogger, JSONLLogger
+    from tpu2048_torch.parallel import mesh
     from tpu2048_torch.training.dqn import (init_loop_state, train,
                                             warm_start_state)
-    from tpu2048_torch.utils.device import resolve_device
 
-    device = resolve_device("cpu" if args.cpu else None)
-    mgr = None
-    config = None
-    if args.checkpoint_dir:
-        if args.resume:
-            # A resumed run keeps the shapes and the engine it was started
-            # with.
-            args = _load_run_config(args, args.checkpoint_dir)
-            config = _restore_config(args, args.checkpoint_dir)
-            args.engine = config.engine
-        mgr = CheckpointManager(args.checkpoint_dir)
-        _save_run_config(args, args.checkpoint_dir)
-    config = config or _dqn_config(args)
+    device = mesh.local_device("cpu" if args.cpu else None)
+    mgr = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
+        else None
+    config = _dqn_config(args)
     state = None
     # A run that resumes from its own checkpoints carries its lineage in
     # them: the warm start is skipped then.
@@ -287,7 +347,8 @@ def cmd_train_dqn(args) -> int:
              "State", "Done", "Ho salvato", "Mosse"])
     try:
         train(config, args.episodes, device,
-              log_fn=_plot_every(args, logger.log), state=state,
+              log_fn=_plot_every(args, logger.log) if logger.enabled
+              else logger.log, state=state,
               ckpt_manager=mgr, resume=args.resume,
               trace_fn=trace_logger.log if trace_logger else None)
     finally:
@@ -441,12 +502,18 @@ def cmd_analyze(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    if args.scale:
-        return _not_ported("--scale")
     from tpu2048_torch import bench
 
     device = "cpu" if args.cpu else None
-    if args.learner:
+    if args.scale:
+        counts = [int(x) for x in args.scale.split(",")]
+        if not args.cpu and max(counts) > _cards():
+            print(f"--scale {args.scale} needs one card a rank; this "
+                  f"machine has {_cards()} (gloo ranks: --cpu)",
+                  file=sys.stderr)
+            return 2
+        bench.scale_main(counts, device=device)
+    elif args.learner:
         bench.learner_main(batch=args.train_batch, updates=args.updates,
                            device=device)
     elif args.train_loop:
@@ -536,17 +603,20 @@ def _add_dqn_args(p: argparse.ArgumentParser) -> None:
                         "whenever the env semantics allow")
     p.add_argument("--steps-per-chunk", type=int, default=16)
     p.add_argument("--replay-shards", type=int, default=1,
-                   help="only 1 is ported")
+                   help="split envs, replay and the learner batch into N "
+                        "shards (raised to --data-parallel)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="shard envs/replay/batch over N ranks: without "
+                        "--coordinator, N local ranks (a card each; gloo "
+                        "ranks with --cpu)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="only 1 is ported")
+                   help="tensor parallelism: only 1 is ported")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="not yet ported")
-    p.add_argument("--num-processes", type=int, default=None,
-                   help="not yet ported")
-    p.add_argument("--process-id", type=int, default=None,
-                   help="not yet ported")
+                   help="host:port of rank 0: this process is rank "
+                        "--process-id of --num-processes "
+                        "(torch.distributed; NCCL, gloo with --cpu)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--checkpoint-dir", type=str, default=None)
     p.add_argument("--checkpoint-every", type=int, default=100,
                    help="full state save every N episodes (mainDQL:324)")
@@ -701,7 +771,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="timed updates for --learner")
     pb.add_argument("--envs", type=int, default=128,
                     help="env count for --train-loop")
-    pb.add_argument("--scale", type=str, default=None, help="not yet ported")
+    pb.add_argument("--scale", type=str, default=None,
+                    help="data-parallel scaling of the DQN training chunk "
+                         "over comma-separated rank counts, e.g. 1,2,4 (a "
+                         "card a rank; gloo ranks with --cpu)")
     pb.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     pb.set_defaults(fn=cmd_bench)

@@ -39,6 +39,7 @@ import torch
 
 from tpu2048_torch.env import rewards as rw
 from tpu2048_torch.ops import board as board_ops
+from tpu2048_torch.parallel.mesh import ShardedSource
 
 SHAPED = "shaped"
 SIMPLE = "simple"
@@ -119,6 +120,22 @@ class GeneratorSpawns:
     def fresh(self, batch: int) -> torch.Tensor:
         u = self._uniform((4, batch))
         return board_ops.init_board(u[:2], u[2:])
+
+
+class ShardedSpawns(ShardedSource):
+    """Draw source of lane shards: shard s draws the spawns and fresh boards
+    of lanes ``[s B/S, (s+1) B/S)`` from its own source (a
+    :class:`GeneratorSpawns` keyed by the shard), as
+    :class:`tpu2048_torch.env.fast.ShardedBits` does for the fast engine."""
+
+    def spawn(self, board: torch.Tensor):
+        parts = [src.spawn(b) for src, b in
+                 zip(self.sources, board.chunk(len(self.sources)))]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    def fresh(self, batch: int) -> torch.Tensor:
+        per = self.per_shard(batch)
+        return torch.cat([src.fresh(per) for src in self.sources])
 
 
 class ReplaySpawns:

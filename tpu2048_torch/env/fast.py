@@ -31,6 +31,7 @@ from tpu2048_torch.env import rewards as rw
 from tpu2048_torch.env.env import SHAPED, SIMPLE
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops import step_kernel as sk
+from tpu2048_torch.parallel.mesh import ShardedSource
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +107,25 @@ class GeneratorBits:
             -(2**31), 2**31, (8, batch), dtype=torch.int32,
             generator=self.generator, device=self.device,
         )
+
+
+class ShardedBits(ShardedSource):
+    """Bit source of lane shards: shard s draws the rows of lanes ``[s B/S,
+    (s+1) B/S)`` from its own source (a :class:`GeneratorBits` keyed by the
+    shard), and a step's ``(8, B)`` rows are the shards' side by side.
+
+    This is the port's counterpart of ``make_sharded_kernel``
+    (``tpu2048/env/fast.py:471-543``): there each device runs the kernel on
+    its lanes with ``axis_index * 7919`` added to the in-kernel seed. The
+    port always feeds explicit bits, so a shard's stream is keyed by the
+    shard instead, and a rank that holds shards ``[s0, s1)`` draws theirs
+    alone: its lanes see the bits they see in one process with all shards.
+    A rank then calls :func:`fast_step` on its ``(16, B/R)`` boards; there
+    is no traffic between ranks in the env."""
+
+    def __call__(self, batch: int) -> torch.Tensor:
+        per = self.per_shard(batch)
+        return torch.cat([src(per) for src in self.sources], dim=1)
 
 
 class PhiloxBits:

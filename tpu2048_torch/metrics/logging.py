@@ -5,8 +5,8 @@ writes the reference's per-step CSV (:class:`CSVLogger`); the 3-panel
 training plot is drawn from the JSON rows (:func:`plot_training`,
 :func:`plot_from_jsonl`), with matplotlib imported only there, on its Agg
 backend. The rows are the JAX package's, so each package reads the other's
-logs. The port runs in one process, so every logger writes (the JAX
-loggers write on host 0 only).
+logs. Data parallel, only rank 0's loggers write and echo, as the JAX
+loggers write on host 0 only; the others' files are never made.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import json
 import os
 from typing import Iterable, List, Optional
 
+from tpu2048_torch.parallel.mesh import is_primary_host
+
 
 class JSONLLogger:
     """Append metric dicts as JSON lines; optional stdout echo."""
@@ -23,13 +25,16 @@ class JSONLLogger:
     def __init__(self, path: Optional[str], echo: bool = True):
         self.path = path
         self.echo = echo
+        self.enabled = is_primary_host()
         self._fh = None
-        if path:
+        if path and self.enabled:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             # Append: a resumed run continues the same metrics file.
             self._fh = open(path, "a", buffering=1)
 
     def log(self, row: dict) -> None:
+        if not self.enabled:
+            return
         if self._fh:
             self._fh.write(json.dumps(row) + "\n")
         if self.echo:
@@ -59,10 +64,13 @@ def read_jsonl(path: str) -> List[dict]:
 
 class CSVLogger:
     """Reference-style CSV appender (Agent/main.py:59-62; mainDQL:22-25):
-    the header once, when the file is new."""
+    the header once, when the file is new; rank 0 only."""
 
     def __init__(self, path: str, header: List[str]):
         self.path = path
+        self._fh = None
+        if not is_primary_host():
+            return
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         new = not os.path.exists(path)
         self._fh = open(path, "a", newline="", buffering=1)
@@ -71,10 +79,13 @@ class CSVLogger:
             self._writer.writerow(header)
 
     def log(self, row: Iterable) -> None:
-        self._writer.writerow(list(row))
+        if self._fh:
+            self._writer.writerow(list(row))
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh:
+            self._fh.close()
+            self._fh = None
 
 
 def plot_training(

@@ -14,10 +14,13 @@ Each array has one row more than the capacity: the last row is a
 write-only trash row that rejected lanes are scattered into, where the JAX
 module drops them with ``mode="drop"``. It is never read.
 
-The JAX package's ``replay/sharded.py`` (a leading shard axis) is not
-ported: the port keeps one flat buffer, so its total size is ``size``. Its
-``ReplayConfig``, which nothing reads, is not ported either: the DQN's
-replay settings are fields of ``DQNConfig``.
+Insertion, sampling and the priority update also take a sharded buffer
+(:mod:`tpu2048_torch.replay.sharded`): the same arrays with a leading shard
+axis, ``(S, C/S + 1, ...)`` and ``(S,)`` scalars. They then do the flat
+operation in each shard, as one indexing of every shard at once;
+a flat buffer is the one-shard case without the axis. The JAX module's
+``ReplayConfig``, which nothing reads, is not ported: the DQN's replay
+settings are fields of ``DQNConfig``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 @dataclasses.dataclass
 class ReplayBuffer:
+    # Flat shapes; a sharded buffer has a leading (S,) axis on each.
     boards: torch.Tensor  # (C + 1, 4, 4) int8
     next_boards: torch.Tensor  # (C + 1, 4, 4) int8
     actions: torch.Tensor  # (C + 1,) int8
@@ -41,7 +45,8 @@ class ReplayBuffer:
 
     @property
     def capacity(self) -> int:
-        return self.boards.shape[0] - 1
+        """Slots (of each shard, when sharded)."""
+        return self.boards.shape[-3] - 1
 
 
 # The per-slot arrays, each with the trash row.
@@ -67,42 +72,72 @@ def replay_init(capacity: int, device="cpu") -> ReplayBuffer:
     )
 
 
+def _at(buffer: ReplayBuffer, slots: torch.Tensor):
+    """The index of ``slots`` (int64; ``(S, n)`` within their shards, or
+    ``(n,)`` of a flat buffer) into the per-slot arrays."""
+    if not buffer.ptr.dim():
+        return slots
+    return torch.arange(slots.shape[0], device=slots.device)[:, None], slots
+
+
+def _take(buffer: ReplayBuffer, x: torch.Tensor, at) -> torch.Tensor:
+    """``x`` at index ``at``, flat in shard order."""
+    return x[at].flatten(0, 1) if buffer.ptr.dim() else x[at]
+
+
+def _per_shard(buffer: ReplayBuffer, x: torch.Tensor) -> torch.Tensor:
+    """``(B, ...)`` as ``(S, B/S, ...)`` (as it is, for a flat buffer);
+    raises when B does not divide."""
+    if not buffer.ptr.dim():
+        return x
+    s = buffer.ptr.shape[0]
+    if x.shape[0] % s:
+        raise ValueError(f"{x.shape[0]} entries not divisible by {s} shards")
+    return x.reshape(s, x.shape[0] // s, *x.shape[1:])
+
+
 def replay_add(buffer: ReplayBuffer, boards, actions, rewards, dones,
                next_boards, mask) -> ReplayBuffer:
     """Insert the transitions whose ``mask`` is True, compacted, in place.
 
     Masked-out entries (the actor's dedup skips, Dqn8:283-297) consume no
     slots. New entries get ``max_priority`` (Dqn8:44-46). Ring semantics:
-    the oldest entries are overwritten once full. Returns ``buffer``.
+    the oldest entries are overwritten once full. Sharded, env i goes to
+    shard ``i // (B/S)``, each shard with its own ring and ``max_priority``.
+    Returns ``buffer``.
     """
     c = buffer.capacity
+    mask = _per_shard(buffer, mask)
     m = mask.to(torch.int32)
-    offsets = torch.cumsum(m, 0, dtype=torch.int32) - 1
-    n_added = m.sum(dtype=torch.int32)
-    pos = torch.where(mask, (buffer.ptr + offsets) % c, c).to(torch.int64)
-    buffer.boards[pos] = boards.to(torch.int8)
-    buffer.next_boards[pos] = next_boards.to(torch.int8)
-    buffer.actions[pos] = actions.to(torch.int8)
-    buffer.rewards[pos] = rewards.to(torch.float32)
-    buffer.dones[pos] = dones
-    buffer.priorities[pos] = buffer.max_priority
+    offsets = torch.cumsum(m, -1, dtype=torch.int32) - 1
+    n_added = m.sum(-1, dtype=torch.int32)
+    pos = torch.where(mask, (buffer.ptr[..., None] + offsets) % c, c)
+    at = _at(buffer, pos.to(torch.int64))
+    buffer.boards[at] = _per_shard(buffer, boards.to(torch.int8))
+    buffer.next_boards[at] = _per_shard(buffer, next_boards.to(torch.int8))
+    buffer.actions[at] = _per_shard(buffer, actions.to(torch.int8))
+    buffer.rewards[at] = _per_shard(buffer, rewards.to(torch.float32))
+    buffer.dones[at] = _per_shard(buffer, dones)
+    buffer.priorities[at] = buffer.max_priority[..., None]
     buffer.ptr = (buffer.ptr + n_added) % c
     buffer.size = torch.clamp_max(buffer.size + n_added, c)
     return buffer
 
 
 def _probabilities(buffer: ReplayBuffer, alpha: float) -> torch.Tensor:
-    """Per-slot sampling probabilities (Dqn8:75-83), ``(C,)`` f32."""
+    """Per-slot sampling probabilities (Dqn8:75-83), ``(C,)`` f32 (``(S,
+    C/S)`` sharded, each shard's summing to 1)."""
     c = buffer.capacity
     in_range = (torch.arange(c, device=buffer.size.device)
-                < buffer.size).to(torch.float32)
+                < buffer.size[..., None]).to(torch.float32)
     if alpha == 0.0:
         p = in_range
     else:
-        p = torch.where(in_range > 0, buffer.priorities[:c] ** alpha, 0.0)
+        p = torch.where(in_range > 0, buffer.priorities[..., :c] ** alpha,
+                        0.0)
         # The reference falls back to uniform when all priorities are 0.
-        p = torch.where(p.sum() > 0, p, in_range)
-    return p / torch.clamp_min(p.sum(), 1e-30)
+        p = torch.where(p.sum(-1, keepdim=True) > 0, p, in_range)
+    return p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
 
 
 def sample_indices(buffer: ReplayBuffer, batch_size: int, alpha: float,
@@ -128,23 +163,28 @@ def replay_sample(buffer: ReplayBuffer, batch_size: int, alpha: float, beta,
 
     Returns ``(batch dict, indices, is_weights)``; ``is_weights`` are 1 at
     ``alpha == 0`` and otherwise normalized by the batch max, as in the
-    reference. The batch's ``action`` is int64.
+    reference. The batch's ``action`` is int64. Sharded, ``batch/S`` a
+    shard: ``indices`` are ``(S, batch/S)`` slots within their shards (or
+    that many in shard order), returned so; the batch and the weights are
+    flat in shard order, each shard's weights normalized by their own max.
     """
-    indices = indices.to(torch.int64)
+    indices = _per_shard(buffer, indices.to(torch.int64).reshape(-1))
     if alpha == 0.0:
         w = torch.ones((batch_size,), dtype=torch.float32,
                        device=indices.device)
     else:
         p = _probabilities(buffer, alpha)
-        n = torch.clamp_min(buffer.size.to(torch.float32), 1.0)
-        w = (n * p[indices]) ** (-beta)
-        w = w / torch.clamp_min(w.max(), 1e-30)
+        n = torch.clamp_min(buffer.size.to(torch.float32), 1.0)[..., None]
+        w = (n * p.gather(-1, indices)) ** (-beta)
+        w = (w / torch.clamp_min(w.amax(-1, keepdim=True), 1e-30)
+             ).reshape(-1)
+    at = _at(buffer, indices)
     batch = {
-        "board": buffer.boards[indices],
-        "action": buffer.actions[indices].to(torch.int64),
-        "reward": buffer.rewards[indices],
-        "done": buffer.dones[indices],
-        "next_board": buffer.next_boards[indices],
+        "board": _take(buffer, buffer.boards, at),
+        "action": _take(buffer, buffer.actions, at).to(torch.int64),
+        "reward": _take(buffer, buffer.rewards, at),
+        "done": _take(buffer, buffer.dones, at),
+        "next_board": _take(buffer, buffer.next_boards, at),
     }
     return batch, indices, w
 
@@ -152,10 +192,14 @@ def replay_sample(buffer: ReplayBuffer, batch_size: int, alpha: float, beta,
 def replay_update_priorities(buffer: ReplayBuffer, indices, td_errors,
                              epsilon: float = 1e-6) -> ReplayBuffer:
     """``priority[i] = |td| + eps``; bump ``max_priority`` (Dqn8:97-104).
-    In place; returns ``buffer``."""
+    Sharded, ``indices`` are :func:`replay_sample`'s ``(S, batch/S)`` and
+    each shard's ``max_priority`` is bumped by its own. In place; returns
+    ``buffer``."""
     p = td_errors.abs() + epsilon
-    buffer.priorities[indices.to(torch.int64)] = p
-    buffer.max_priority = torch.maximum(buffer.max_priority, p.max())
+    indices = _per_shard(buffer, indices.to(torch.int64).reshape(-1))
+    p = _per_shard(buffer, p)
+    buffer.priorities[_at(buffer, indices)] = p
+    buffer.max_priority = torch.maximum(buffer.max_priority, p.amax(-1))
     return buffer
 
 

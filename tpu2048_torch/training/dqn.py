@@ -17,14 +17,28 @@ sets a fixed count a step instead.
 
 JAX runs the drain as a ``fori_loop`` whose trip count is computed on the
 device. The port reads the step's counts on the host once a vector step (the
-episodes ended, the LR triggers and the buffer's size, in one transfer) and
-runs the updates as a Python loop: that read is the only wait for the
-device inside a chunk. Everything else stays on the device.
+episodes ended, the LR triggers and whether a replay shard is short of its
+batch, in one transfer) and runs the updates as a Python loop: that read is
+the only wait for the device inside a chunk. Everything else stays on the
+device.
+
+``replay_shards`` S splits the envs, the dedup lanes, the replay buffer and
+the learner batch S ways (:mod:`tpu2048_torch.replay.sharded`); shard s has
+its own env, actor and sampler generators, keyed by ``(seed, s)`` (shard 0
+by the unsharded loop's keys, so that one shard is that loop bit for bit).
+Data parallel over the ranks of a process group
+(:mod:`tpu2048_torch.parallel.mesh`), a rank holds only its shards, their
+lanes and a replica of the agent, draws only from its shards' generators
+and averages each update's gradients over the ranks before Adam; the
+step's read becomes a sum over the ranks, so every host decision is taken
+alike everywhere, and a run of R ranks equals one process with the same S.
 
 Periodic operations keyed on episodes run between chunks, as in the JAX
 loop: target sync every 20 episodes, the prune of the 10 worst buffered
-episodes every 50, a full checkpoint every 100, a named checkpoint at each
-new best tile >= 512, and the optional rollback-on-regression.
+episodes (of each shard, ``prune_n // S``) every 50, a full checkpoint
+every 100, a named checkpoint at each new best tile >= 512, and the
+optional rollback-on-regression. They read the running sums reduced over
+the ranks.
 
 With ``trace_env0`` each vector step adds env 0's row of the reference's
 per-step debug CSV (mainDQL:22-25, 234) to a list on the device; the host
@@ -51,7 +65,9 @@ from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SIMPLE, EnvConfig
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops.step_kernel import from_cell_major
+from tpu2048_torch.parallel import mesh
 from tpu2048_torch.replay import buffer as replaylib
+from tpu2048_torch.replay import sharded
 from tpu2048_torch.utils.watchdog import STARTUP_FLOOR, Watchdog
 
 # Rollback-on-regression restores at most this many blocks in a row
@@ -61,8 +77,8 @@ ROLLBACK_MAX_CONSECUTIVE = 2
 
 @dataclasses.dataclass(frozen=True)
 class DQNTrainConfig:
-    """``tpu2048.training.dqn.DQNTrainConfig`` without its TPU and
-    multi-device knobs (``fast_backend``, ``replay_shards``)."""
+    """``tpu2048.training.dqn.DQNTrainConfig`` without its TPU knob
+    (``fast_backend``)."""
 
     agent: dqnlib.DQNConfig = dqnlib.DQNConfig()
     env: EnvConfig = EnvConfig(reward=SIMPLE, terminal_bonus=True)
@@ -76,6 +92,7 @@ class DQNTrainConfig:
     max_updates_per_step: int = 512  # debt drained per vector step, max
     train_batch: int = 64  # Dqn8:249 batch_size
     steps_per_chunk: int = 16  # vector steps between host-side operations
+    replay_shards: int = 1  # envs, replay and batch split S ways (ranks)
     target_sync_episodes: int = 20  # mainDQL:274
     prune_episodes: int = 50  # mainDQL:318
     prune_n: int = 10  # mainDQL:320
@@ -135,7 +152,10 @@ def _agent_dict(agent: dqnlib.DQNTrainState) -> Dict:
     }
 
 
-def _load_agent(agent: dqnlib.DQNTrainState, payload: Dict) -> None:
+def _load_agent(agent: dqnlib.DQNTrainState, state_payload: Dict) -> None:
+    """The agent of a loop state's payload; a rank's ``learner_generator``
+    (:meth:`DQNLoopState.rank_part`) wins over the agent's generator."""
+    payload = state_payload["agent"]
     agent.model.load_state_dict(payload["model"])
     agent.target.load_state_dict(payload["target"])
     # Optimizer.load_state_dict keeps tensors that are already on the
@@ -144,26 +164,57 @@ def _load_agent(agent: dqnlib.DQNTrainState, payload: Dict) -> None:
     agent.optimizer.load_state_dict(_clone(payload["optimizer"]))
     agent.step_counter = int(payload["step_counter"])
     agent.train_steps = int(payload["train_steps"])
-    agent.generator.set_state(payload["generator"])
+    agent.generator.set_state(state_payload.get("learner_generator",
+                                                payload["generator"]))
+
+
+def _generators(source) -> List[torch.Generator]:
+    """A draw source's generators: a sharded source's, one a shard."""
+    gens = getattr(source, "generators", None)
+    return gens if gens is not None else [source.generator]
+
+
+def _generator_states(source) -> torch.Tensor:
+    """The generators' states: one state, or one row a shard."""
+    states = [g.get_state() for g in _generators(source)]
+    return states[0] if len(states) == 1 else torch.stack(states)
+
+
+def _set_generator_states(source, states: torch.Tensor) -> None:
+    gens = _generators(source)
+    rows = [states] if states.dim() == 1 else list(states)
+    if len(rows) != len(gens):
+        raise ValueError(f"{len(rows)} generator states for {len(gens)} "
+                         "shards")
+    for g, row in zip(gens, rows):
+        # A generator takes a state of its own storage: a row of the
+        # stacked states, a view, crashes the CPU generator.
+        g.set_state(row.clone())
 
 
 @dataclasses.dataclass
 class DQNLoopState:
-    """Everything the training loop carries across chunks.
+    """Everything the training loop carries across chunks: on a rank of a
+    process group, its lanes, its replay shards and a replica of the agent
+    (``layout`` says which).
 
     ``bits`` feeds the env: the env kernel's bit source (``(8, B)`` rows a
     step) on the fast engine, the classic env's spawn source on the lax
     engine. ``draws`` feeds the actor and the sampler
-    (:mod:`tpu2048_torch.agents.dqn`). The counters that steer the host
-    loop are host integers, the running sums device tensors.
+    (:mod:`tpu2048_torch.agents.dqn`). With several shards on the rank each
+    is a sharded source, one generator a shard. The counters that steer the
+    host loop are host integers, the same on every rank; the running sums
+    are device tensors over this rank's lanes (the loss sums, replicated).
     """
 
     env_state: Union[fastlib.FastEnvState, envlib.EnvState]
     dedup: dqnlib.DedupState
-    buffer: replaylib.ReplayBuffer
+    buffer: replaylib.ReplayBuffer  # flat, or sharded (S, C/S + 1, ...)
     agent: dqnlib.DQNTrainState
-    bits: Union[fastlib.GeneratorBits, envlib.GeneratorSpawns]
-    draws: dqnlib.GeneratorDraws
+    bits: Union[fastlib.GeneratorBits, fastlib.ShardedBits,
+                envlib.GeneratorSpawns, envlib.ShardedSpawns]
+    draws: Union[dqnlib.GeneratorDraws, dqnlib.ShardedDraws]
+    layout: mesh.RankLayout
     episodes_done: int
     env_steps: int
     update_debt: int  # learner updates owed (debt mode)
@@ -181,27 +232,62 @@ class DQNLoopState:
     COUNTERS = ("episodes_done", "env_steps", "update_debt", "loss_count")
     SUMS = ("sum_return", "sum_score", "sum_length", "best_tile",
             "sum_final_tile", "tile_hist", "loss_sum", "last_loss")
+    # The payload's keys that are alike on every rank; the others, with the
+    # learner's (dropout) generator, are a rank's own part.
+    REPLICATED = ("agent", *COUNTERS, "loss_sum", "last_loss", "world",
+                  "replay_shards")
 
     @property
     def device(self) -> torch.device:
         return self.sum_return.device
 
+    @property
+    def replay_shards(self) -> int:
+        """The run's shards, over every rank."""
+        return len(self.layout.shards) * self.layout.world
+
     def state_dict(self) -> Dict:
         """The whole state as nested dicts of tensors and numbers (the
-        live tensors, not copies)."""
+        live tensors, not copies), with the world size and shard count
+        that wrote it."""
         return {
             "env_state": _tensors(self.env_state),
             "dedup": _tensors(self.dedup),
             "buffer": _tensors(self.buffer),
             "agent": _agent_dict(self.agent),
-            "bits": self.bits.generator.get_state(),
-            "draws": self.draws.generator.get_state(),
+            "bits": _generator_states(self.bits),
+            "draws": _generator_states(self.draws),
+            "world": self.layout.world,
+            "replay_shards": self.replay_shards,
             **{k: getattr(self, k) for k in self.COUNTERS + self.SUMS},
         }
 
+    def rank_part(self) -> Dict:
+        """This rank's own part of :meth:`state_dict`: its lanes, shards,
+        generators and sums. A checkpoint holds rank 0's whole state and the
+        other ranks' parts; a rank's payload is rank 0's overlaid with its
+        part (``learner_generator`` replaces the agent's)."""
+        payload = self.state_dict()
+        part = {k: v for k, v in payload.items() if k not in self.REPLICATED}
+        part["learner_generator"] = payload["agent"]["generator"]
+        return part
+
+    def check_layout(self, payload: Dict) -> None:
+        """Raise unless ``payload`` was written at this state's world size
+        and shard count (a payload without them: one rank, one shard)."""
+        got = (payload.get("world", 1), payload.get("replay_shards", 1))
+        if got != (self.layout.world, self.replay_shards):
+            raise ValueError(
+                f"the checkpoint was written by {got[0]} rank(s) with "
+                f"{got[1]} replay shard(s); this run has "
+                f"{self.layout.world} rank(s) and {self.replay_shards}: "
+                "resuming at another world size or shard count is not "
+                "supported (it needs the checkpoint resharded)")
+
     def load_state_dict(self, payload: Dict) -> None:
         """Copy ``payload`` (from :meth:`state_dict`, on any device) into
-        this state."""
+        this state; raise if its layout differs."""
+        self.check_layout(payload)
         device = self.device
         self.env_state = _from_tensors(type(self.env_state),
                                        payload["env_state"], device)
@@ -209,41 +295,74 @@ class DQNLoopState:
                                    device)
         self.buffer = _from_tensors(replaylib.ReplayBuffer,
                                     payload["buffer"], device)
-        _load_agent(self.agent, payload["agent"])
-        self.bits.generator.set_state(payload["bits"])
-        self.draws.generator.set_state(payload["draws"])
+        _load_agent(self.agent, payload)
+        _set_generator_states(self.bits, payload["bits"])
+        _set_generator_states(self.draws, payload["draws"])
         for k in self.COUNTERS:
             setattr(self, k, int(payload[k]))
         for k in self.SUMS:
             setattr(self, k, payload[k].to(device, copy=True))
 
 
+def _seeds(seed: int, key: int):
+    """``(agent, env, draws)`` seeds of shard (or rank) ``key``: shard 0
+    keeps the unsharded loop's, shard s > 0 takes the child ``s`` of the
+    run's seed sequence."""
+    seq = (np.random.SeedSequence(seed) if key == 0
+           else np.random.SeedSequence(seed, spawn_key=(key,)))
+    return [int(x) for x in seq.generate_state(3)]
+
+
+def _shard_source(single, sharded_cls, seeds, device):
+    """One shard's source, or a sharded source over one a shard."""
+    if len(seeds) == 1:
+        return single(seeds[0], device)
+    return sharded_cls([single(s, device) for s in seeds])
+
+
 def init_loop_state(config: DQNTrainConfig, device) -> DQNLoopState:
-    """Fresh envs, networks and an empty buffer on ``device``; the
-    networks', the env's and the draws' generators are seeded from
-    ``config.seed``."""
-    agent_seed, env_seed, draw_seed = (
-        int(s) for s in np.random.SeedSequence(config.seed).generate_state(3))
+    """Fresh envs, networks and an empty buffer on ``device``, for this
+    process's rank (:func:`tpu2048_torch.parallel.mesh.rank_layout`; all
+    shards without a process group). The networks are seeded from
+    ``config.seed`` (and rank 0's broadcast to the others), each shard's
+    env and draw generators from ``(seed, shard)``, the dropout generator
+    of rank r > 0 from ``(seed, r)``."""
+    layout = mesh.rank_layout(config.num_envs, config.train_batch,
+                              config.replay_shards)
+    agent_seed = _seeds(config.seed, 0)[0]
     agent = dqnlib.create_train_state(config.agent, device, agent_seed)
     device = next(agent.model.parameters()).device
+    if layout.rank:
+        agent.generator.manual_seed(_seeds(config.seed, layout.rank)[0])
+    mesh.broadcast_module(agent.model)
+    mesh.broadcast_module(agent.target)
+    env_seeds = [_seeds(config.seed, s)[1] for s in layout.shards]
+    draw_seeds = [_seeds(config.seed, s)[2] for s in layout.shards]
+    b = layout.num_envs
     if resolve_engine(config) == "lax":
-        bits = envlib.GeneratorSpawns(env_seed, device)
-        env_state = envlib.reset(config.env, bits, config.num_envs)
+        bits = _shard_source(envlib.GeneratorSpawns, envlib.ShardedSpawns,
+                             env_seeds, device)
+        env_state = envlib.reset(config.env, bits, b)
     else:
-        bits = fastlib.GeneratorBits(env_seed, device)
-        env_state = fastlib.fast_reset(bits, config.num_envs,
-                                       fast_config(config))
+        bits = _shard_source(fastlib.GeneratorBits, fastlib.ShardedBits,
+                             env_seeds, device)
+        env_state = fastlib.fast_reset(bits, b, fast_config(config))
+    shards = len(layout.shards)
 
     def zero(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return DQNLoopState(
         env_state=env_state,
-        dedup=dqnlib.dedup_init(config.num_envs, device),
-        buffer=replaylib.replay_init(config.agent.memory_size, device),
+        dedup=dqnlib.dedup_init(b, device),
+        buffer=sharded.sharded_init(
+            config.agent.memory_size // config.replay_shards * shards,
+            shards, device),
         agent=agent,
         bits=bits,
-        draws=dqnlib.GeneratorDraws(draw_seed, device),
+        draws=_shard_source(dqnlib.GeneratorDraws, dqnlib.ShardedDraws,
+                            draw_seeds, device),
+        layout=layout,
         episodes_done=0,
         env_steps=0,
         update_debt=0,
@@ -267,11 +386,12 @@ def warm_start_state(state: DQNLoopState, directory: str,
 
     Carried from the source checkpoint: the agent (both networks, Adam's
     state with the decayed LR, the epsilon step counter, the update count,
-    the learner's generator) and the replay buffer. Fresh from ``state``:
-    envs, dedup caches, the env's and the draws' generators, episode and
-    env-step counters, update debt and every metric sum. ``named`` selects
-    a named checkpoint, else ``step`` or the latest step; a missing source
-    raises FileNotFoundError.
+    the learner's generator) and the replay buffer (this rank's shards).
+    Fresh from ``state``: envs, dedup caches, the env's and the draws'
+    generators, episode and env-step counters, update debt and every metric
+    sum. ``named`` selects a named checkpoint, else ``step`` or the latest
+    step; a missing source raises FileNotFoundError, one of another world
+    size or shard count ValueError.
     """
     from tpu2048_torch.checkpoint.ckpt import CheckpointManager
 
@@ -286,7 +406,8 @@ def warm_start_state(state: DQNLoopState, directory: str,
         if s is None:
             raise FileNotFoundError(f"no step checkpoints in {directory}")
         payload = mgr.read(s)
-    _load_agent(state.agent, payload["agent"])
+    state.check_layout(payload)
+    _load_agent(state.agent, payload)
     state.buffer = _from_tensors(replaylib.ReplayBuffer, payload["buffer"],
                                  state.device)
     return state
@@ -316,12 +437,12 @@ def _trace_rows(rows, episode: int, trace_fn) -> int:
 
 def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
                  trace: Optional[list] = None) -> float:
-    """One vector step with its learner updates, in place; returns the
-    step's epsilon. ``fcfg`` is the fast config, None on the lax engine.
-    With a ``trace`` list, env 0's row is appended to it (on the
-    device)."""
+    """One vector step of this rank's lanes with its learner updates, in
+    place; returns the step's epsilon. ``fcfg`` is the fast config, None on
+    the lax engine. With a ``trace`` list, env 0's row is appended to it (on
+    the device)."""
     acfg = config.agent
-    b = config.num_envs
+    b = st.layout.num_envs
     with record_function("actor"):
         if fcfg is None:
             boards = st.env_state.board
@@ -346,26 +467,30 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
     with record_function("replay_add"):
         save, st.dedup = dqnlib.dedup_mask(st.dedup, boards, next_boards,
                                            ts.done, acfg.dedup)
-        replaylib.replay_add(st.buffer, boards, actions, ts.reward, ts.done,
-                             next_boards, save)
+        sharded.sharded_add(st.buffer, boards, actions, ts.reward, ts.done,
+                            next_boards, save)
     if trace is not None:
         trace.append(_trace_row(actions, legal, ts, save, boards))
-    st.agent.step_counter += b  # the epsilon counter counts env steps
+    # The epsilon counter counts env steps, of every rank.
+    st.agent.step_counter += config.num_envs
     # LR hook: x0.98 once per episode that ended with a >= 1024 pre-step
     # board (remember() checks np.max(state), Dqn8:284).
     triggers = ts.done & (board_ops.max_tile_value(boards)
                           >= acfg.lr_decay_tile)
+    # The reference's replay() guard (Dqn8:353-354), per shard as in JAX:
+    # skip (not defer) while a shard holds under its part of the batch.
+    per_shard = config.train_batch // config.replay_shards
+    short = (sharded.shard_sizes(st.buffer) < per_shard).sum()
     # The only wait for the device inside a chunk: this step's episode
-    # ends, LR triggers and buffer size, in one transfer. The learner's
-    # trip count and the LR are host values.
-    n_done, n_trigger, size = torch.stack([
-        ts.done.sum(), triggers.sum(), st.buffer.size.to(torch.int64)
-    ]).tolist()
+    # ends, LR triggers and short shards, in one transfer, summed over the
+    # ranks. The learner's trip count and the LR are host values, alike on
+    # every rank.
+    counts = mesh.all_reduce(torch.stack([
+        ts.done.sum(), triggers.sum(), short]))
+    n_done, n_trigger, n_short = counts.tolist()
     dqnlib.maybe_decay_lr(acfg, st.agent, n_trigger)
 
-    # The reference's replay() guard: skip (not defer) while the buffer is
-    # under one batch or epsilon has not started decaying (Dqn8:353-354).
-    can_train = size >= config.train_batch and eps < 1.0
+    can_train = n_short == 0 and eps < 1.0
     if config.updates_per_step is not None:
         n_upd = config.updates_per_step if can_train else 0
         debt_after = st.update_debt
@@ -374,19 +499,19 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
         n_upd = min(debt, config.max_updates_per_step) if can_train else 0
         debt_after = debt - n_upd if can_train else 0
 
+    batch_size = st.layout.batch
+    grad_reduce = mesh.average_gradients if mesh.is_initialized() else None
     loss_sum = torch.zeros((), dtype=torch.float32, device=st.device)
     with record_function("learner"):
         for _ in range(n_upd):
-            indices = st.draws.indices(st.buffer, config.train_batch,
-                                       acfg.alpha)
-            batch, indices, _ = replaylib.replay_sample(
-                st.buffer, config.train_batch, acfg.alpha, acfg.beta,
-                indices=indices)
-            loss, td = dqnlib.train_step(acfg, st.agent, batch)
+            indices = st.draws.indices(st.buffer, batch_size, acfg.alpha)
+            batch, indices, _ = sharded.sharded_sample(
+                st.buffer, batch_size, acfg.alpha, acfg.beta, indices)
+            loss, td = dqnlib.train_step(acfg, st.agent, batch, grad_reduce)
             if acfg.alpha != 0.0:
                 # |TD| -> priorities (Dqn8:389-390); at alpha=0 they are
                 # never read.
-                replaylib.replay_update_priorities(
+                sharded.sharded_update_priorities(
                     st.buffer, indices, td, acfg.priority_epsilon)
             loss_sum = loss_sum + loss
 
@@ -397,7 +522,7 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
     ep_score = (st.env_state.score + ts.merge_score).to(torch.float32)
     st.env_state = env_state
     st.episodes_done += n_done
-    st.env_steps += b
+    st.env_steps += config.num_envs
     st.update_debt = debt_after
     st.sum_return = st.sum_return + (ts.episode_return * done_f).sum()
     st.sum_score = st.sum_score + (ep_score * done_f).sum()
@@ -411,6 +536,24 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
     if n_upd > 0:
         st.last_loss = loss_sum / n_upd
     return eps
+
+
+def host_sums(state: DQNLoopState) -> Dict:
+    """The running values the host loop reads, over every rank: episodes
+    (``ep``), the sums of returns, scores, lengths and final tiles, the
+    buffer's size, the tile histogram (summed over the ranks), the best
+    tile (their maximum) and the loss sum and count (replicated)."""
+    local = torch.cat([
+        torch.stack([state.sum_return, state.sum_score, state.sum_length,
+                     state.sum_final_tile]).to(torch.float64),
+        sharded.total_size(state.buffer).to(torch.float64).reshape(1),
+        state.tile_hist.to(torch.float64)])
+    ret, score, length, tiles, size, *hist = mesh.all_reduce(local).tolist()
+    best = mesh.all_reduce(state.best_tile.clone(), "max")
+    return dict(ep=state.episodes_done, ret=ret, score=score, length=length,
+                tiles=tiles, size=int(size), hist=[int(h) for h in hist],
+                best=int(best), loss=float(state.loss_sum),
+                nloss=state.loss_count)
 
 
 def train_chunk(config: DQNTrainConfig, state: DQNLoopState,
@@ -456,8 +599,9 @@ def train(config: DQNTrainConfig, total_episodes: int, device=None,
             if latest is not None:
                 ckpt_manager.restore(latest, state)
                 if config.prune_on_resume > 0:
-                    state.buffer = replaylib.prune_low_score_episodes(
-                        state.buffer, config.prune_on_resume)
+                    state.buffer = sharded.sharded_prune(
+                        state.buffer, max(1, config.prune_on_resume
+                                          // config.replay_shards))
         return _train_loop(config, total_episodes, state, log_fn,
                            ckpt_manager, trace_fn, watchdog)
     finally:
@@ -474,19 +618,14 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager,
     env0_episode = 0
     logs: List[dict] = []
     start_ep = state.episodes_done
-
-    def sums():
-        return dict(ep=state.episodes_done, ret=float(state.sum_return),
-                    score=float(state.sum_score),
-                    length=float(state.sum_length),
-                    loss=float(state.loss_sum), nloss=state.loss_count)
-
-    prev = dict(sums(), t=time.time(), best=int(state.best_tile))
+    prune_per_shard = max(1, config.prune_n // config.replay_shards)
+    g = host_sums(state)
+    prev = dict(g, t=time.time())
     last_sync = last_prune = last_ckpt = start_ep
     # Rollback bookkeeping (host-side, mainDQL:108-114).
     block = dict(idx=start_ep // max(config.rollback_block, 1), ep=start_ep,
-                 tiles=float(state.sum_final_tile), prev_avg=None,
-                 restored=0, rollbacks=0, mem=None)
+                 tiles=g["tiles"], prev_avg=None, restored=0, rollbacks=0,
+                 mem=None)
     use_mem = config.rollback_store == "memory"
     while state.episodes_done < total_episodes:
         trace = [] if tracing else None
@@ -500,12 +639,14 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager,
                 last_sync // config.target_sync_episodes):
             dqnlib.update_target(state.agent)
             last_sync = ep
+        g = host_sums(state)
         if ep // config.prune_episodes > last_prune // config.prune_episodes:
-            if int(state.buffer.size) > config.train_batch:
-                state.buffer = replaylib.prune_low_score_episodes(
-                    state.buffer, config.prune_n)
+            if g["size"] > config.train_batch:
+                state.buffer = sharded.sharded_prune(state.buffer,
+                                                     prune_per_shard)
+                g = host_sums(state)
             last_prune = ep
-        best = int(state.best_tile)
+        best = g["best"]
         # Milestone saves at the reference's 512/1024/2048 tiers.
         if best >= 512 and best > prev["best"] and ckpt_manager is not None:
             ckpt_manager.save_named(f"tile_{best}_ep{ep}", state)
@@ -522,8 +663,7 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager,
         if (config.rollback and (use_mem or ckpt_manager is not None)
                 and ep // config.rollback_block > block["idx"]):
             block["idx"] = ep // config.rollback_block
-            avg = (float(state.sum_final_tile) - block["tiles"]) / max(
-                ep - block["ep"], 1)
+            avg = (g["tiles"] - block["tiles"]) / max(ep - block["ep"], 1)
             has_backup = (block["mem"] is not None if use_mem
                           else ckpt_manager.has_named("block_checkpoint"))
             if (block["prev_avg"] is not None
@@ -546,8 +686,9 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager,
                 last_sync = min(last_sync, ep)
                 last_prune = min(last_prune, ep)
                 last_ckpt = min(last_ckpt, ep)
-                best = int(state.best_tile)
-                prev.update(sums(), best=best)
+                g = host_sums(state)
+                best = g["best"]
+                prev.update(g)
             else:
                 if use_mem:
                     block["mem"] = _clone(state.state_dict())
@@ -556,26 +697,25 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager,
                 block["prev_avg"] = avg
                 block["restored"] = 0
             block["ep"] = state.episodes_done
-            block["tiles"] = float(state.sum_final_tile)
+            block["tiles"] = g["tiles"]
             beat()  # the disk store's save or restore moves the state
 
         now = time.time()
         d_ep = max(ep - prev["ep"], 1)
-        cur = sums()
         row = {
             "episodes": ep,
             "env_steps": state.env_steps,
             "epsilon": eps,
             "lr": dqnlib.current_lr(state.agent),
-            "buffer_size": int(state.buffer.size),
+            "buffer_size": g["size"],
             "train_steps": state.agent.train_steps,
-            "mean_return": (cur["ret"] - prev["ret"]) / d_ep,
-            "mean_score": (cur["score"] - prev["score"]) / d_ep,
-            "mean_length": (cur["length"] - prev["length"]) / d_ep,
+            "mean_return": (g["ret"] - prev["ret"]) / d_ep,
+            "mean_score": (g["score"] - prev["score"]) / d_ep,
+            "mean_length": (g["length"] - prev["length"]) / d_ep,
             "best_tile": best,
-            "loss": (cur["loss"] - prev["loss"])
-            / max(cur["nloss"] - prev["nloss"], 1),
-            "tile_hist": [int(x) for x in state.tile_hist],
+            "loss": (g["loss"] - prev["loss"])
+            / max(g["nloss"] - prev["nloss"], 1),
+            "tile_hist": g["hist"],
             "steps_per_s": config.num_envs * config.steps_per_chunk
             / max(now - prev["t"], 1e-9),
         }
@@ -586,7 +726,8 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager,
             # max_updates_per_step is too small for this env count.
             row["update_debt"] = state.update_debt
             if (state.update_debt > 20 * config.max_updates_per_step
-                    and not prev.get("debt_warned")):
+                    and not prev.get("debt_warned")
+                    and mesh.is_primary_host()):
                 prev["debt_warned"] = True
                 print(
                     f"WARNING: learner debt {state.update_debt} updates and "
@@ -596,7 +737,7 @@ def _train_loop(config, total_episodes, state, log_fn, ckpt_manager,
                     f"{config.updates_per_episode}; the reference update "
                     "ratio is not being met. Raise max_updates_per_step or "
                     "reduce --envs.", flush=True)
-        prev.update(cur, t=now)
+        prev.update(g, best=prev["best"], t=now)
         logs.append(row)
         if log_fn:
             log_fn(row)
