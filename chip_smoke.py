@@ -183,10 +183,27 @@ can be timed in one run on one card.
     loss sum within rtol 1e-3; rank 0 alone logs); ``bench --scale 1``
     (one NCCL rank) beside phase 15's ``bench --train-loop``. Every path
     runs the step kernel and no other; ranks report their own launches.
+20. Tensor parallelism and resharded resume (``parallel/mesh.py``'s
+    ``(D, M)`` grid, ``checkpoint/ckpt.py``'s parts by shard): (a) two gloo
+    ranks sharing the card train 4 replay shards at phase 19's narrow width
+    and checkpoint them; one process resumes them, its step kernel on all
+    128 lanes once a vector step, its ``host_sums`` equal the writers'
+    just after the restore and its rows equal a straight one-process
+    run's; (b) a ``(2, 2)`` grid of four gloo ranks against one process
+    with two shards (``run_chunks``; integers equal, parameters within
+    rtol 2e-4 and atol 2e-5); (c) at full width (bf16), two gloo ranks as
+    one model group: the sliced forward against the whole module's on the
+    same weights at batch 64 and 128 (phase 16's bf16 tolerance), ms a
+    learner update at batch 64 and its share in the model group's gathers
+    and all-reduces, ``train`` at the ``train dqn`` defaults to its first
+    episode's updates with a checkpoint, which one process resumes at
+    ``model_parallel`` 1 (its Q-values against the ranks' and one chunk).
+    Gloo ranks that share one card check correctness; they do not measure
+    tensor-parallel speed (every collective goes through the host).
 
 Then one JSON line describing the four kernels (the step kernel's launches
-counted over phases 4, 13, 16, 17 and 19, the table kernels' over phases 7
-and 18), and the result line.
+counted over phases 4, 13, 16, 17, 19 and 20, the table kernels' over
+phases 7 and 18), and the result line.
 
 Phase 13's ``train dqn`` also writes env 0's ``--debug-csv`` (the
 reference's header, one row a vector step) under ``--watchdog``, and
@@ -196,6 +213,7 @@ reference's header, one row a vector step) under ``--watchdog``, and
 import concurrent.futures
 import contextlib
 import csv
+import dataclasses
 import functools
 import io
 import itertools
@@ -3117,6 +3135,373 @@ def phase_parallel(sk, tk, torch, device, dqn_rows, loop_row):
     return launches
 
 
+TP_SHARDS = 4  # phase 20 (a): the shards two gloo ranks write
+TP_MORE_EPISODES = 2  # episodes the resume and the straight run go on for
+TP_Q_BATCHES = (64, DQN_ENVS)  # the learner's and the actor's batch
+TP_TIMED_UPDATES = 10
+TP_FLOAT_KEYS = ("loss", "mean_return", "mean_score", "mean_length")
+
+
+def rows_agree(got, want, rtol=PAR_LOSS_RTOL):
+    """Rows of two runs agree: every key equal but the float sums' means
+    (within ``rtol``) and ``steps_per_s``."""
+    if len(got) != len(want):
+        return False
+    for a, b in zip(want, got):
+        for k in a:
+            if k in TP_FLOAT_KEYS:
+                if abs(b[k] - a[k]) > rtol * max(abs(a[k]), 1e-12):
+                    return False
+            elif k != "steps_per_s" and b[k] != a[k]:
+                return False
+    return True
+
+
+def sums_agree(got, want):
+    return all(abs(got[k] - v) <= PAR_LOSS_RTOL * abs(v)
+               if isinstance(v, float) else got[k] == v
+               for k, v in want.items())
+
+
+def tp_launches(fn):
+    """``fn()`` and the step kernel's launches in it, on this process."""
+    from tpu2048_torch.ops import step_kernel as sk
+
+    before = sk.fused_env_step.launches
+    out = fn()
+    return out, sk.fused_env_step.launches - before
+
+
+def reshard_writer(config, episodes, directory):
+    """Phase 20 (a), a rank: train to ``episodes`` with checkpoints; its
+    rows, host sums at the end (the last checkpoint's) and launches."""
+    from tpu2048_torch.checkpoint.ckpt import CheckpointManager
+    from tpu2048_torch.parallel import mesh
+    from tpu2048_torch.training import dqn as dtrain
+
+    def run():
+        state = dtrain.init_loop_state(config, mesh.local_device())
+        rows = dtrain.train(config, episodes, state.device, state=state,
+                            ckpt_manager=CheckpointManager(directory))
+        return rows, dtrain.host_sums(state)
+
+    (rows, sums), launches = tp_launches(run)
+    return rows, sums, launches
+
+
+def tp_reshard(torch, device, tmp):
+    """Phase 20 (a): two gloo ranks write 4 shards; one process on the card
+    resumes them and goes on as a straight run does."""
+    from tpu2048_torch.checkpoint.ckpt import CheckpointManager
+    from tpu2048_torch.parallel.testkit import chunk_config, spawn_ranks
+    from tpu2048_torch.training import dqn as dtrain
+
+    config = dataclasses.replace(chunk_config(2, **PAR_GLOO_KW),
+                                 replay_shards=TP_SHARDS)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, functools.partial(reshard_writer, config, 1, tmp),
+                        backend="gloo", device="cuda")
+    wall = time.perf_counter() - t0
+    rows, sums, _ = ranks[0]
+    last = rows[-1]["episodes"]
+    total = last + TP_MORE_EPISODES
+    mgr = CheckpointManager(tmp)
+    names = sorted(os.listdir(os.path.join(tmp, "steps", str(last))))
+    state = dtrain.init_loop_state(config, device)
+    t0 = time.perf_counter()
+    mgr.restore(mgr.latest_step(), state)
+    restore_s = time.perf_counter() - t0
+    restored = dtrain.host_sums(state)
+    resumed, launches = tp_launches(
+        lambda: dtrain.train(config, total, device, state=state))
+    straight, straight_launches = tp_launches(
+        lambda: dtrain.train(config, total, device))
+    steps = config.steps_per_chunk * len(resumed)
+    if (names != ["rank1.pt", "state.pt"] or ranks[1][1] != sums
+            or not sums_agree(restored, sums)
+            or not rows_agree(rows, straight[:len(rows)])
+            or not rows_agree(resumed, straight[len(rows):])
+            or launches != steps or not resumed):
+        fail(f"phase 20 (a): files {names}; sums {sums} / {restored}; "
+             f"written {rows}, resumed {resumed} against the straight run "
+             f"{straight}; launches {launches} for {steps} vector steps")
+    print(f"phase 20 (a): two gloo ranks sharing the card wrote "
+          f"{TP_SHARDS} replay shards (features {config.agent.features}, "
+          f"float32, dropout 0, {config.num_envs} envs, batch "
+          f"{config.train_batch}) to episode {last} in {len(rows)} chunks "
+          f"({wall:.3f} s, spawn included; files {names}); one process "
+          f"restored all 4 shards in {restore_s:.3f} s, host_sums equal the "
+          f"writers' (episodes {restored['ep']}, buffer {restored['size']}, "
+          f"best {restored['best']}), and ran {len(resumed)} chunk(s) to "
+          f"episode {resumed[-1]['episodes']} with {launches} step-kernel "
+          f"launches on all {config.num_envs} lanes ({steps} vector steps); "
+          f"its rows equal the straight one-process run's (integers equal, "
+          f"means within rtol {PAR_LOSS_RTOL})")
+    return sum(r[2] for r in ranks) + launches + straight_launches
+
+
+def tp_grid(torch, device):
+    """Phase 20 (b): a (2, 2) grid of four gloo ranks sharing the card
+    against one process with two shards."""
+    from tpu2048_torch.parallel.testkit import (chunk_config, run_chunks,
+                                                spawn_ranks)
+
+    config = chunk_config(2, **PAR_GLOO_KW)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(4, functools.partial(
+        run_chunks, 4, 2, PAR_GLOO_CHUNKS, params=True, config=config),
+        backend="gloo", device="cuda")
+    wall = time.perf_counter() - t0
+    one = run_chunks(4, 2, PAR_GLOO_CHUNKS, params=True, config=config,
+                     device=device)
+    worst = 0.0
+    for got in ranks:
+        for k, w in one["params"].items():
+            g = got["params"][k].to(w.device)
+            if not torch.allclose(g, w, rtol=PAR_PARAM_RTOL,
+                                  atol=PAR_PARAM_ATOL):
+                fail(f"phase 20 (b): (2, 2) grid, parameter {k} differs "
+                     f"beyond rtol {PAR_PARAM_RTOL}, atol {PAR_PARAM_ATOL}")
+            worst = max(worst, (g - w).abs().max().item())
+        if (any(got[k] != one[k] for k in ("env_steps", "episodes",
+                                           "train_steps", "eps"))
+                or abs(got["loss_sum"] - one["loss_sum"])
+                > PAR_LOSS_RTOL * abs(one["loss_sum"])
+                or not got["launches"] > 0):
+            digest = [{k: v for k, v in r.items() if k != "params"}
+                      for r in ranks + [one]]
+            fail(f"phase 20 (b): (2, 2) grid {digest[:4]} against one "
+                 f"process {digest[4]}")
+    steps = config.steps_per_chunk * PAR_GLOO_CHUNKS
+    print(f"phase 20 (b): a (2, 2) grid of four gloo ranks sharing the card "
+          f"(features {config.agent.features}, float32, dropout 0, "
+          f"{config.num_envs} envs, batch {config.train_batch}, 2 shards, "
+          f"the networks sliced over each row's 2 ranks, {steps} vector "
+          f"steps): integers equal one process with 2 shards (env_steps "
+          f"{one['env_steps']}, episodes {one['episodes']}, updates "
+          f"{one['train_steps']}) on every rank, parameters within "
+          f"{worst:.3g}, loss sums {[r['loss_sum'] for r in ranks]} against "
+          f"{one['loss_sum']!r}; step-kernel launches "
+          f"{[r['launches'] for r in ranks]} on the ranks, "
+          f"{one['launches']} in one process; ms a vector step "
+          f"{fmt_ms([1e3 * r['seconds'] / steps for r in ranks])} on the "
+          f"ranks against {1e3 * one['seconds'] / steps:.4f} in one "
+          f"process; {wall:.3f} s for the ranks' call")
+    return sum(r["launches"] for r in ranks) + one["launches"]
+
+
+def tp_boards(torch, b, device):
+    gen = torch.Generator().manual_seed(SEED + 20 + b)
+    boards = torch.randint(0, 12, (b, 4, 4), dtype=torch.int8, generator=gen)
+    boards[torch.rand((b, 4, 4), generator=gen) < 0.3] = 0
+    return boards.to(device)
+
+
+def tp_timed_update(torch, state, cfg, device):
+    """ms of one learner update at batch 64 on a sliced agent, and of the
+    model group's gathers and all-reduces in it: host clock around
+    ``TP_TIMED_UPDATES`` updates, the device synchronised, each collective
+    timed between two synchronisations (gloo copies through the host)."""
+    import torch.distributed as dist
+
+    from tpu2048_torch.agents import dqn as tdqn
+    from tpu2048_torch.parallel import mesh
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    b = 64
+    batch = {"board": tp_boards(torch, b, device),
+             "action": torch.randint(0, 4, (b,), generator=gen).to(device),
+             "reward": torch.randn(b, generator=gen).to(device),
+             "done": (torch.rand(b, generator=gen) < 0.1).to(device),
+             "next_board": tp_boards(torch, b, device)}
+    tdqn.train_step(cfg, state, batch)
+    spent = {"gather": 0.0, "all_reduce": 0.0}
+    calls = {"gather": 0, "all_reduce": 0}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize(device)
+            spent[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return out
+        return wrapper
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(TP_TIMED_UPDATES):
+        tdqn.train_step(cfg, state, batch)
+    torch.cuda.synchronize(device)
+    plain = (time.perf_counter() - t0) / TP_TIMED_UPDATES
+    gather, all_reduce = mesh._all_gather, dist.all_reduce
+    mesh._all_gather = timed("gather", gather)
+    dist.all_reduce = timed("all_reduce", all_reduce)
+    try:
+        for _ in range(TP_TIMED_UPDATES):
+            tdqn.train_step(cfg, state, batch)
+    finally:
+        mesh._all_gather, dist.all_reduce = gather, all_reduce
+    n = TP_TIMED_UPDATES
+    return dict(update_ms=1e3 * plain,
+                gather_ms=1e3 * spent["gather"] / n,
+                all_reduce_ms=1e3 * spent["all_reduce"] / n,
+                gathers=calls["gather"] / n,
+                all_reduces=calls["all_reduce"] / n)
+
+
+def tp_full_rank(directory):
+    """Phase 20 (c), a rank of one model group of two at full width: the
+    sliced forward against the whole module's, the timed update, then
+    ``train`` at the ``train dqn`` defaults with a checkpoint. Returns the
+    numbers, the rows, the Q-values of the check boards after training and
+    the launches."""
+    import torch
+
+    from tpu2048_torch.agents import dqn as tdqn
+    from tpu2048_torch.checkpoint.ckpt import CheckpointManager
+    from tpu2048_torch.parallel import mesh
+    from tpu2048_torch.training import dqn as dtrain
+
+    device = mesh.local_device()
+    cfg = tdqn.DQNConfig()
+    model_group, _ = mesh.grid_groups(1, 2)
+    sliced = tdqn.create_train_state(cfg, device, SEED, model_group)
+    whole = tdqn.create_train_state(cfg, device, SEED)
+    forward = []
+    for b in TP_Q_BATCHES:
+        boards = tp_boards(torch, b, device)
+        sliced.model.eval()
+        with torch.no_grad():
+            qs, qw = sliced.model(boards), whole.model.eval()(boards)
+        tol = DQN_MODEL_BF16_TOL * max(1.0, float(qw.abs().max()))
+        forward.append(dict(batch=b, err=float((qs - qw).abs().max()),
+                            tol=tol, finite=bool(torch.isfinite(qs).all())))
+    del whole
+    timing = tp_timed_update(torch, sliced, cfg, device)
+    del sliced
+    torch.cuda.empty_cache()
+    config = dtrain.DQNTrainConfig(model_parallel=2, seed=SEED)
+
+    def run():
+        state = dtrain.init_loop_state(config, device)
+        rows = dtrain.train(config, 1, device, state=state,
+                            ckpt_manager=CheckpointManager(directory))
+        state.agent.model.eval()
+        with torch.no_grad():
+            q = state.agent.model(tp_boards(torch, DQN_ENVS, device))
+        return rows, q.cpu()
+
+    (rows, q), launches = tp_launches(run)
+    return dict(forward=forward, timing=timing, rows=rows, q=q,
+                launches=launches)
+
+
+def tp_full_width(torch, device, tmp):
+    """Phase 20 (c): M = 2 at full width on two gloo ranks sharing the
+    card, and the resume of their checkpoint in one process at M = 1."""
+    from tpu2048_torch.checkpoint.ckpt import CheckpointManager
+    from tpu2048_torch.parallel.testkit import spawn_ranks
+    from tpu2048_torch.training import dqn as dtrain
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, functools.partial(tp_full_rank, tmp),
+                        backend="gloo", device="cuda")
+    wall = time.perf_counter() - t0
+    got = ranks[0]
+    for r in ranks:
+        for f in r["forward"]:
+            if not (f["finite"] and f["err"] <= f["tol"]):
+                fail(f"phase 20 (c): sliced forward at batch {f['batch']}: "
+                     f"max |dQ| {f['err']:.3e} against {f['tol']:.3e}")
+    rows = got["rows"]
+    last = rows[-1]
+    if (not rows_agree(ranks[1]["rows"], rows)
+            or not torch.equal(ranks[1]["q"], got["q"])
+            or last["train_steps"] + last["update_debt"]
+            != 100 * last["episodes"] or not last["train_steps"] > 0
+            or not math.isfinite(last["loss"])):
+        fail(f"phase 20 (c): M = 2 train rows {rows} / {ranks[1]['rows']}")
+    config = dtrain.DQNTrainConfig(seed=SEED)
+    state = dtrain.init_loop_state(config, device)
+    mgr = CheckpointManager(tmp)
+    t0 = time.perf_counter()
+    mgr.restore(mgr.latest_step(), state)
+    restore_s = time.perf_counter() - t0
+    state.agent.model.eval()
+    with torch.no_grad():
+        q = state.agent.model(tp_boards(torch, DQN_ENVS, device)).cpu()
+    err = float((q - got["q"]).abs().max())
+    tol = DQN_MODEL_BF16_TOL * max(1.0, float(got["q"].abs().max()))
+    (_, eps), launches = tp_launches(
+        lambda: dtrain.train_chunk(config, state))
+    if (not err <= tol or launches != config.steps_per_chunk
+            or state.agent.train_steps < last["train_steps"]):
+        fail(f"phase 20 (c): the M = 1 resume: max |dQ| {err:.3e} against "
+             f"{tol:.3e}, {launches} launches, {state.agent.train_steps} "
+             "updates")
+    t = got["timing"]
+    share = (t["gather_ms"] + t["all_reduce_ms"]) / t["update_ms"]
+    for f in got["forward"]:
+        print(f"phase 20 (c): M = 2 at full width (bf16), two gloo ranks "
+              f"sharing the card: sliced forward at batch {f['batch']} "
+              f"against the whole module on the same weights: max |dQ| "
+              f"{f['err']:.3e} (tolerance {f['tol']:.3e}, phase 16's)")
+    print(f"phase 20 (c): a learner update at batch 64 on the sliced agent: "
+          f"{t['update_ms']:.3f} ms (host clock, {TP_TIMED_UPDATES} "
+          f"updates); in a timed turn its {t['gathers']:.0f} gathers take "
+          f"{t['gather_ms']:.3f} ms and its {t['all_reduces']:.0f} "
+          f"all-reduces {t['all_reduce_ms']:.3f} ms an update, "
+          f"{100 * share:.1f}% of an untimed update (each collective "
+          f"between two synchronisations; gloo through the host)")
+    prev = 0
+    for i, row in enumerate(rows):
+        upd = row["train_steps"] - prev
+        prev = row["train_steps"]
+        ms = 1e3 * config.num_envs * config.steps_per_chunk / row[
+            "steps_per_s"]
+        print(f"phase 20 (c):   train, M = 2, chunk {i + 1}: {ms:.1f} ms, "
+              f"{upd} updates"
+              + (f", {(ms - rows_ms_plain(rows)) / upd:.1f} ms an update"
+                 if upd else ""))
+    print(f"phase 20 (c): train at the train dqn defaults, M = 2: "
+          f"{len(rows)} chunks to episode {last['episodes']}, "
+          f"{last['train_steps']} updates + {last['update_debt']} owed, "
+          f"step-kernel launches {[r['launches'] for r in ranks]} on the "
+          f"ranks; {wall:.3f} s for the ranks' call; the checkpoint (agent "
+          f"gathered whole) restored in one process at M = 1 in "
+          f"{restore_s:.3f} s: its Q-values on {DQN_ENVS} boards within "
+          f"{err:.3e} of the ranks' (tolerance {tol:.3e}), one chunk with "
+          f"{launches} launches")
+    return sum(r["launches"] for r in ranks) + launches
+
+
+def rows_ms_plain(rows):
+    """ms of a chunk without updates: the mean of the chunks that took
+    none (the actor, the env and the replay alone)."""
+    ms, prev = [], 0
+    for row in rows:
+        if row["train_steps"] == prev:
+            ms.append(1e3 * DQN_ENVS * DQN_CHUNK / row["steps_per_s"])
+        prev = row["train_steps"]
+    return sum(ms) / max(len(ms), 1)
+
+
+def phase_tensor_parallel(torch, device):
+    """Phase 20, tensor parallelism and resharded resume; returns the step
+    kernel's launches in its paths (the ranks' own counts included)."""
+    t0 = time.perf_counter()
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += tp_reshard(torch, device, tmp)
+    launches += tp_grid(torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += tp_full_width(torch, device, tmp)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s of wall time")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -3186,6 +3571,7 @@ def main():
         greedy_fast=greedy_fast, dqn_rows=dqn_rows))
     parallel_launches = phase_parallel(sk, tk, torch, device, dqn_rows,
                                        loop_row)
+    tensor_launches = phase_tensor_parallel(torch, device)
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -3207,7 +3593,7 @@ def main():
             "source": "tpu2048_torch/csrc/step_kernel.cu",
             "replaces": "tpu2048/ops/pallas_step.py:308",
             "launches": launches + dqn_launches + fused_launches
-            + legacy_launches + parallel_launches,
+            + legacy_launches + parallel_launches + tensor_launches,
             "max_abs_err": max_err,
             "ms": main_row["ms"],
             "graph_ms": main_row["graph_ms"],

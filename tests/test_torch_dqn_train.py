@@ -378,6 +378,30 @@ def test_cli_warm_start_and_stop_at_tile(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--model-parallel", "2"]])
-def test_cli_train_dqn_refuses_what_is_not_ported(flags, capsys):
-    assert main(["train", "dqn", "--cpu", *flags]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_train_dqn_refuses_what_is_not_ported(flags, capsys, tmp_path):
+    """Once refused, ``--model-parallel 2`` now runs: two processes under
+    ``--coordinator``, one data row of two model ranks, take the path of
+    one process without the flags; a grid that is not the process count
+    still exits 2."""
+    import sys
+
+    from test_torch_parallel import assert_rows_agree, run_workers
+    from tpu2048_torch.metrics.logging import read_jsonl
+    from tpu2048_torch.parallel.testkit import free_port
+
+    run = [*NARROW_FLAGS, "--episodes", "2"]
+    log, plain = str(tmp_path / "m.jsonl"), str(tmp_path / "plain.jsonl")
+    port = str(free_port())
+    run_workers([[sys.executable, "-m", "tpu2048_torch", "train", "dqn",
+                  *run, *flags, "--data-parallel", "1", "--coordinator",
+                  f"127.0.0.1:{port}", "--num-processes", "2",
+                  "--process-id", str(pid), "--log", log]
+                 for pid in range(2)])
+    assert run_cli(["train", "dqn", *run, "--log", plain])[0] == 0
+    rows = read_jsonl(log)
+    assert rows[-1]["episodes"] >= 2
+    assert_rows_agree(rows, read_jsonl(plain))
+    assert main(["train", "dqn", *run, *flags, "--data-parallel", "2",
+                 "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                 "2", "--process-id", "0"]) == 2
+    assert "must equal --num-processes" in capsys.readouterr().err

@@ -32,6 +32,7 @@ import functools
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -234,9 +235,25 @@ LOOP = ttrain.DQNTrainConfig(
     checkpoint_episodes=8, seed=4)
 
 
-def spawn(fn):
-    return testkit.spawn_ranks(2, fn, device="cpu",
+def spawn(fn, n=2):
+    return testkit.spawn_ranks(n, fn, device="cpu",
                                timeout_s=RANK_TIMEOUT_S)
+
+
+FLOAT_ROW_KEYS = ("loss", "mean_return", "mean_score", "mean_length")
+
+
+def assert_rows_agree(got, want):
+    """Rows of two runs: every key equal, but the float sums' means within
+    ``LOSS_RTOL`` and the host's ``steps_per_s``."""
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert a.keys() == b.keys()
+        for k in a:
+            if k in FLOAT_ROW_KEYS:
+                assert b[k] == pytest.approx(a[k], rel=LOSS_RTOL), k
+            elif k != "steps_per_s":
+                assert b[k] == a[k], k
 
 
 def test_train_loop_over_two_ranks_checkpoints_and_resumes(tmp_path):
@@ -255,21 +272,19 @@ def test_train_loop_over_two_ranks_checkpoints_and_resumes(tmp_path):
         "rank1.pt", "state.pt"]
 
     # One process holding both shards takes the same path, row for row.
-    one = ttrain.train(LOOP, 10, "cpu")
-    assert len(one) == len(logs[0])
-    for a, b in zip(one, logs[0]):
-        for k in a:
-            if k in ("loss", "mean_return", "mean_score", "mean_length"):
-                assert b[k] == pytest.approx(a[k], rel=LOSS_RTOL), k
-            elif k != "steps_per_s":
-                assert b[k] == a[k], k
+    assert_rows_agree(logs[0], ttrain.train(LOOP, 10, "cpu"))
 
+    copy = str(tmp_path / "copy")
+    shutil.copytree(ck, copy)
     more = spawn(functools.partial(testkit.train_rank, LOOP, last + 5,
                                    checkpoint_dir=ck, resume=True))
     assert more[0][0]["env_steps"] == logs[0][-1]["env_steps"] + 32 * 8
     assert more[0][-1]["episodes"] > last
-    with pytest.raises(ValueError, match="another world size"):
-        ttrain.train(LOOP, last + 5, "cpu", ckpt_manager=mgr, resume=True)
+    # One process resumes the two ranks' checkpoint, both shards on it,
+    # and takes the same path as the two ranks' resume.
+    alone = ttrain.train(LOOP, last + 5, "cpu",
+                         ckpt_manager=CheckpointManager(copy), resume=True)
+    assert_rows_agree(alone, more[0])
 
 
 def run_cli(argv):
@@ -348,6 +363,9 @@ def test_cli_train_dqn_runs_the_multi_device_flags(case, tmp_path):
     (["--coordinator", "127.0.0.1:1", "--num-processes", "2",
       "--process-id", "0"], "must equal --num-processes"),
     (["--coordinator", "127.0.0.1:1"], "needs --num-processes"),
+    (["--coordinator", "127.0.0.1:1", "--data-parallel", "2",
+      "--model-parallel", "2", "--num-processes", "2", "--process-id",
+      "0"], "must equal --num-processes"),
 ])
 def test_cli_train_dqn_exits_2_on_flags_that_disagree(flags, message,
                                                       capsys):
@@ -356,9 +374,11 @@ def test_cli_train_dqn_exits_2_on_flags_that_disagree(flags, message,
 
 
 def test_dryrun_multichip_on_gloo_ranks(capsys):
+    # An even count takes model_parallel 2, as JAX's dry run does: one data
+    # row of 8 envs, 2 steps.
     digest = testkit.dryrun_multichip(2, device="cpu")
-    assert digest["env_steps"] == 2 * 8 * 2 and digest["launches"] == 0
-    assert "dryrun_multichip(2): ranks=2" in capsys.readouterr().out
+    assert digest["env_steps"] == 1 * 8 * 2 and digest["launches"] == 0
+    assert "dryrun_multichip(2): mesh=(1, 2)" in capsys.readouterr().out
 
 
 def test_mesh_and_layout_rules():
@@ -370,15 +390,24 @@ def test_mesh_and_layout_rules():
         mesh.create_mesh(mesh.MeshConfig(data_parallel=4), 2)
     with pytest.warns(UserWarning, match="uses only 2 of 4"):
         mesh.create_mesh(mesh.MeshConfig(data_parallel=2), 4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        mesh.create_mesh(mesh.MeshConfig(2, model_parallel=2), 4)
+    # Tensor parallel: rank r at (r // M, r % M), as JAX lays devices.
+    grid = mesh.create_mesh(mesh.MeshConfig(2, model_parallel=2), 4)
+    assert grid.shape == {"data": 2, "model": 2}
+    assert grid.ranks == ((0, 1), (2, 3))
     lay = mesh.rank_layout(128, 64, 4, rank_=1, world=2)
     assert (lay.shards, lay.lanes, lay.batch, lay.num_envs) == (
         range(2, 4), slice(64, 128), 32, 64)
+    # Rank 3 of (2, 2): data row 1's shards and lanes, model index 1.
+    lay = mesh.rank_layout(128, 64, 4, rank_=3, world=4, model_parallel=2)
+    assert (lay.data_index, lay.model_index, lay.dp, lay.mp) == (1, 1, 2, 2)
+    assert (lay.shards, lay.lanes, lay.batch) == (range(2, 4),
+                                                  slice(64, 128), 32)
     for args, what in (((128, 64, 3, 0, 2), "replay shards"),
                        ((100, 64, 8, 0, 2), "envs"),
                        ((128, 20, 8, 0, 2), "learner batch")):
         with pytest.raises(ValueError, match=what):
             mesh.rank_layout(*args)
+    with pytest.raises(ValueError, match="model groups of 2"):
+        mesh.rank_layout(128, 64, 4, rank_=0, world=3, model_parallel=2)
     assert mesh.distributed_init(device="cpu") == torch.device("cpu")
     assert not mesh.is_initialized()

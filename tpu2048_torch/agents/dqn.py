@@ -33,13 +33,14 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpu2048_torch.agents.tabular import _first_true
 from tpu2048_torch.models import dqn as dqn_model
+from tpu2048_torch.parallel import mesh
 from tpu2048_torch.parallel.mesh import ShardedSource
 from tpu2048_torch.replay import buffer as replaylib
 from tpu2048_torch.replay import sharded
@@ -101,16 +102,24 @@ def make_optimizer(config: DQNConfig, model: torch.nn.Module
                             betas=(0.9, 0.999), eps=ADAM_EPS, fused=True)
 
 
-def create_train_state(config: DQNConfig, device, seed: int
+def create_train_state(config: DQNConfig, device, seed: int,
+                       model_group: Optional[mesh.ModelGroup] = None
                        ) -> DQNTrainState:
     """Fresh networks on ``device`` with lecun-normal weights drawn from
-    ``seed``, the target a copy of the online network."""
+    ``seed``, the target a copy of the online network. In a process group
+    rank 0's weights are broadcast to every rank; with a ``model_group``
+    both networks then keep this rank's slices (:func:`tpu2048_torch.
+    models.dqn.shard_module`), and Adam's moments are made for the
+    slices."""
     init_seed, learner_seed = np.random.SeedSequence(seed).generate_state(2)
     model = dqn_model.create_model(config, device)
     device = next(model.parameters()).device
     dqn_model.init_params(
         model, torch.Generator(device=device).manual_seed(int(init_seed)))
+    mesh.broadcast_module(model)
     target = copy.deepcopy(model).eval().requires_grad_(False)
+    dqn_model.shard_module(model, model_group)
+    dqn_model.shard_module(target, model_group)
     return DQNTrainState(
         model=model,
         target=target,
@@ -255,8 +264,11 @@ def train_step(config: DQNConfig, state: DQNTrainState, batch,
     """One gradient update on a sampled batch (Dqn8:351-400), in place.
 
     With ``grad_reduce`` (data parallel: :func:`tpu2048_torch.parallel.
-    mesh.average_gradients`), ``grad_reduce(parameters, loss)`` averages the
-    gradients over the ranks before Adam and returns the mean loss.
+    mesh.average_gradients` over the data group), ``grad_reduce(parameters,
+    loss)`` averages the gradients over the data-parallel ranks before Adam
+    and returns the mean loss. A sliced module's backward sums the input
+    gradients of its sliced layers over the model group itself, and the
+    loss is the same on every model rank.
     Returns ``(loss, td_errors)``: the loss as a () tensor and the
     per-sample |TD| (B,), both without gradient.
     """
@@ -284,18 +296,19 @@ def load_jax_train_state(state: DQNTrainState, params, target_params, mu,
                          train_steps: int) -> DQNTrainState:
     """Carry a JAX train state into ``state``, in place: the flax parameter
     trees of both networks and Adam's moments ``mu``/``nu`` as numpy arrays
-    (flax layout), Adam's step ``count``, the learning rate and the two
-    counters."""
+    (flax layout, whole), Adam's step ``count``, the learning rate and the
+    two counters. A sliced agent loads its slices."""
     dqn_model.load_flax_params(state.model, params)
     dqn_model.load_flax_params(state.target, target_params)
-    mus = dqn_model.flax_to_torch_layout(state.model, mu)
-    nus = dqn_model.flax_to_torch_layout(state.model, nu)
+    mus, nus = (dqn_model.slice_state_dict(
+        state.model, dqn_model.flax_to_torch_layout(state.model, tree))
+        for tree in (mu, nu))
     for name, p in state.model.named_parameters():
         state.optimizer.state[p] = {
             "step": torch.tensor(float(count), dtype=torch.float32,
                                  device=p.device),
-            "exp_avg": mus[name].to(p.device),
-            "exp_avg_sq": nus[name].to(p.device),
+            "exp_avg": mus[name].to(p.device, copy=True),
+            "exp_avg_sq": nus[name].to(p.device, copy=True),
         }
     set_lr(state, lr)
     state.step_counter = int(step_counter)

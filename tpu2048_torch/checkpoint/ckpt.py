@@ -13,14 +13,28 @@ Layout of the directory: ``steps/<episode>/state.pt`` (the newest
 ``max_to_keep`` are kept) and ``named/<name>/state.pt`` (milestone tiers
 ``tile_<tile>_ep<episode>`` and the rollback ``block_checkpoint``).
 
-Data parallel (:mod:`tpu2048_torch.parallel.mesh`), every rank saves
-together. Rank r > 0 writes its own part (the state's ``rank_part()``),
-``rank<r>.pt`` in the same directory: its lanes' env state and dedup caches, its replay shards, its
-generators (env, draws, dropout) and its running sums. After a barrier rank
-0 writes ``state.pt``, its whole state with the replicated agent and
-counters, last: a step counts (``all_steps``) only once it is complete. A
-rank reads ``state.pt`` and its own part. A checkpoint is resumed at the
-world size and shard count that wrote it (the loop state checks them).
+Over the ranks of a process group (:mod:`tpu2048_torch.parallel.mesh`)
+every rank saves together, and the files are keyed by replay shard. Model
+index 0 of data row d > 0 writes its row's part (the state's
+``rank_part()``), ``rank<d>.pt`` in the same directory: its lanes' env
+state and dedup caches, its replay shards, its generators (each shard's env
+and draws, the row's dropout) and its running sums, with the shards it
+holds (``shards``). After a barrier rank 0 writes ``state.pt`` last, data
+row 0's whole state with the agent and the counters: a step counts
+(``all_steps``) only once it is complete. The agent in ``state.pt`` is
+whole, a sliced one gathered over row 0's model group before the write, so
+``restore_params_only``, ``eval --checkpoint-dir`` and ``--warm-start``
+read any run's weights, and a run at any model-parallel size slices what it
+reads.
+
+A rank reads ``state.pt`` (mapped) and every part, and assembles its
+payload for its own shards from the parts that hold them
+(:func:`tpu2048_torch.training.dqn.shard_payload`): a checkpoint resumes at
+any data- or model-parallel size that divides its shard count, as JAX's
+restore puts global arrays on any mesh. Another shard count or env count
+raises, as changed global shapes do there. Part d of a checkpoint written
+by D data rows holds shards ``[d S/D, (d+1) S/D)``; the data-parallel
+checkpoints before tensor parallelism have that layout, one part a rank.
 """
 
 from __future__ import annotations
@@ -36,8 +50,8 @@ from tpu2048_torch.parallel import mesh
 STATE_FILE = "state.pt"
 
 
-def _rank_file(rank: int) -> str:
-    return STATE_FILE if rank == 0 else f"rank{rank}.pt"
+def _part_file(data_index: int) -> str:
+    return STATE_FILE if data_index == 0 else f"rank{data_index}.pt"
 
 
 def _write(path: str, payload: Dict, name: str = STATE_FILE) -> None:
@@ -53,31 +67,44 @@ def _read(path: str, mmap: bool = False, name: str = STATE_FILE) -> Dict:
 
 
 def _save(path: str, state: Any) -> None:
-    """Every rank's part of ``state`` into ``path`` (rank r > 0's
-    ``state.rank_part()``), rank 0's ``state.state_dict()`` last."""
-    rank = mesh.rank()
-    if rank:
-        _write(path, state.rank_part(), _rank_file(rank))
+    """``state`` into ``path`` from every rank: data row 0's ranks gather
+    the agent (``state.state_dict()``, which rank 0 writes last), model
+    index 0 of each other row writes its ``state.rank_part()``."""
+    layout = state.layout
+    payload = None
+    if layout.data_index == 0:
+        payload = state.state_dict()
+    elif layout.model_index == 0:
+        _write(path, state.rank_part(), _part_file(layout.data_index))
     mesh.barrier()
-    if rank == 0:
-        _write(path, state.state_dict())
+    if mesh.rank() == 0:
+        _write(path, payload)
     mesh.barrier()
 
 
-def _load(path: str) -> Dict:
-    """This rank's payload from ``path``: ``state.pt``, overlaid on a rank
-    r > 0 with its own part (``state.pt`` is mapped, so only its
-    replicated part is read there)."""
-    rank = mesh.rank()
-    if rank == 0:
-        return _read(path)
-    payload = dict(_read(path, mmap=True))
-    name = _rank_file(rank)
-    if not os.path.isfile(os.path.join(path, name)):
-        raise ValueError(f"{path} holds no part of rank {rank}: it was "
-                         f"written by {payload.get('world', 1)} rank(s)")
-    payload.update(_read(path, name=name))
-    return payload
+def _load(path: str, shards: Optional[range] = None) -> Dict:
+    """The payload of the data row that owns ``shards`` (default: every
+    shard of the checkpoint), assembled from ``state.pt`` and the parts,
+    each mapped, so that only what is used is read. Raises ValueError when
+    the checkpoint has no such shards."""
+    from tpu2048_torch.training.dqn import shard_payload  # noqa: PLC0415
+
+    head = _read(path, mmap=True)
+    world, total = head.get("world", 1), head.get("replay_shards", 1)
+    shards = range(total) if shards is None else shards
+    if shards.stop > total:
+        raise ValueError(f"{path} holds {total} replay shard(s), this run "
+                         f"reads shards {shards.start}-{shards.stop - 1}")
+    parts = []
+    for d in range(world):
+        held = range(d * total // world, (d + 1) * total // world)
+        part = head if d == 0 else _read(path, True, _part_file(d))
+        if list(part.get("shards", (held.start, held.stop))) != [
+                held.start, held.stop]:
+            raise ValueError(f"{path}: part {d} holds shards "
+                             f"{part['shards']}, not {held}")
+        parts.append((held, part))
+    return shard_payload(head, parts, shards)
 
 
 class CheckpointManager:
@@ -103,13 +130,15 @@ class CheckpointManager:
             for old in steps[:-self.max_to_keep]:
                 shutil.rmtree(self._step_path(old))
 
-    def read(self, step: int) -> Dict:
-        """This rank's payload of step ``step``, on the CPU."""
-        return _load(self._step_path(step))
+    def read(self, step: int, shards: Optional[range] = None) -> Dict:
+        """The payload of step ``step`` for the data row that owns
+        ``shards`` (default: every shard), on the CPU."""
+        return _load(self._step_path(step), shards)
 
     def restore(self, step: int, state: Any) -> Any:
-        """Load step ``step`` into ``state`` (in place); returns it."""
-        state.load_state_dict(self.read(step))
+        """Load step ``step`` into ``state`` (in place, for its rank's
+        shards); returns it."""
+        state.load_state_dict(self.read(step, state.layout.shards))
         return state
 
     def all_steps(self) -> List[int]:
@@ -133,11 +162,11 @@ class CheckpointManager:
         checkpoints roll, as the reference's block_checkpoint does)."""
         _save(self._named_path(name), state)
 
-    def read_named(self, name: str) -> Dict:
-        return _load(self._named_path(name))
+    def read_named(self, name: str, shards: Optional[range] = None) -> Dict:
+        return _load(self._named_path(name), shards)
 
     def restore_named(self, name: str, state: Any) -> Any:
-        state.load_state_dict(self.read_named(name))
+        state.load_state_dict(self.read_named(name, state.layout.shards))
         return state
 
     def has_named(self, name: str) -> bool:

@@ -17,17 +17,18 @@ JSON. ``python -m tpu2048_torch bench [--tabular | --learner |
 --train-loop]`` prints one JSON line of throughput
 (:mod:`tpu2048_torch.bench`), ``bench --scale 1,2,...`` one a rank count.
 ``train dqn --replay-shards S`` shards the run's envs and replay in one
-process; ``--data-parallel N`` runs N ranks of a process group
-(:mod:`tpu2048_torch.parallel`), spawned here or, with ``--coordinator``,
-``--num-processes`` and ``--process-id``, one a process. ``plot --log
-m.jsonl --out m.png`` draws the training plot and ``analyze --log m.jsonl``
-prints the run's milestones. ``--cpu``, before or after the subcommand,
-runs on the CPU instead. Flag names and defaults are the JAX CLI's;
-checkpoints are the port's own torch files
-(:mod:`tpu2048_torch.checkpoint.ckpt`), and a params ``.npz``
+process; ``--data-parallel D --model-parallel M`` runs a ``(D, M)`` grid of
+D x M ranks of a process group (:mod:`tpu2048_torch.parallel`; M > 1
+slices the networks over each data row's M ranks), spawned here or, with
+``--coordinator``, ``--num-processes`` and ``--process-id``, one a
+process. ``plot --log m.jsonl --out m.png`` draws the training plot and
+``analyze --log m.jsonl`` prints the run's milestones. ``--cpu``, before or
+after the subcommand, runs on the CPU instead. Flag names and defaults are
+the JAX CLI's; checkpoints are the port's own torch files
+(:mod:`tpu2048_torch.checkpoint.ckpt`), which resume at any ``--data-parallel``
+and ``--model-parallel``, and a params ``.npz``
 (:mod:`tpu2048_torch.checkpoint.params`) carries weights from the JAX
-package. Flags of parts not yet ported (``--model-parallel`` above 1)
-exit with code 2.
+package.
 """
 
 from __future__ import annotations
@@ -39,11 +40,6 @@ import importlib.util
 import json
 import os
 import sys
-
-
-def _not_ported(what: str) -> int:
-    print(f"{what} is not yet ported", file=sys.stderr)
-    return 2
 
 
 def _no_matplotlib(what: str) -> int:
@@ -191,21 +187,20 @@ def cmd_train(args) -> int:
 
 
 def _dqn_refusal(args) -> int:
-    """Exit 2 for what cannot run: tensor parallelism (not yet ported), a
-    process group whose flags disagree, replay shards that do not follow
-    the data-parallel ranks; and ``--plot-every`` without matplotlib.
-    ``--replay-shards`` 1 is raised to ``--data-parallel`` (one shard a
-    rank), as the JAX CLI does, before anything is saved."""
-    if args.model_parallel > 1:
-        return _not_ported("--model-parallel above 1")
+    """Exit 2 for what cannot run: a process group whose flags disagree,
+    replay shards that do not follow the data-parallel ranks; and
+    ``--plot-every`` without matplotlib. ``--replay-shards`` 1 is raised to
+    ``--data-parallel`` (one shard a data row), as the JAX CLI does, before
+    anything is saved."""
     dp = args.data_parallel
     if args.coordinator:
         if args.num_processes is None or args.process_id is None:
             print("--coordinator needs --num-processes and --process-id",
                   file=sys.stderr)
             return 2
-        if dp != args.num_processes:
-            print(f"--data-parallel {dp} must equal --num-processes "
+        if dp * args.model_parallel != args.num_processes:
+            print(f"--data-parallel {dp} x --model-parallel "
+                  f"{args.model_parallel} must equal --num-processes "
                   f"{args.num_processes} (one rank a process)",
                   file=sys.stderr)
             return 2
@@ -254,6 +249,7 @@ def _dqn_config(args):
         train_batch=args.batch,
         steps_per_chunk=args.steps_per_chunk,
         replay_shards=args.replay_shards,
+        model_parallel=args.model_parallel,
         checkpoint_episodes=args.checkpoint_every,
         rollback=args.rollback,
         rollback_store=args.rollback_store,
@@ -292,13 +288,15 @@ def cmd_train_dqn(args) -> int:
             return _train_dqn_rank(args)
         finally:
             mesh.destroy()
-    if args.data_parallel > 1:
-        if not args.cpu and _cards() < args.data_parallel:
-            print(f"--data-parallel {args.data_parallel} needs one card a "
-                  f"rank; this machine has {_cards()} (gloo ranks: "
-                  "--cpu)", file=sys.stderr)
+    ranks = args.data_parallel * args.model_parallel
+    if ranks > 1:
+        if not args.cpu and _cards() < ranks:
+            print(f"--data-parallel {args.data_parallel} x --model-parallel "
+                  f"{args.model_parallel} needs one card a rank; this "
+                  f"machine has {_cards()} (gloo ranks: --cpu)",
+                  file=sys.stderr)
             return 2
-        return max(spawn_ranks(args.data_parallel, functools.partial(
+        return max(spawn_ranks(ranks, functools.partial(
             _train_dqn_rank, args), device=device))
     return _train_dqn_rank(args)
 
@@ -606,11 +604,12 @@ def _add_dqn_args(p: argparse.ArgumentParser) -> None:
                    help="split envs, replay and the learner batch into N "
                         "shards (raised to --data-parallel)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="shard envs/replay/batch over N ranks: without "
-                        "--coordinator, N local ranks (a card each; gloo "
-                        "ranks with --cpu)")
+                   help="shard envs/replay/batch over N data rows of ranks: "
+                        "without --coordinator, local ranks (a card each; "
+                        "gloo ranks with --cpu)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="tensor parallelism: only 1 is ported")
+                   help="tensor parallelism: slice the conv and dense "
+                        "layers' output channels over M ranks a data row")
     p.add_argument("--coordinator", type=str, default=None,
                    help="host:port of rank 0: this process is rank "
                         "--process-id of --num-processes "

@@ -19,6 +19,21 @@ In train mode dropout draws its mask from an explicit ``torch.Generator``
 by flax's rule: keep with probability ``1 - rate``, scale the kept values
 by ``1 / (1 - rate)`` in ``dtype``. The gradient flows through the ``dtype``
 casts into the float32 parameters.
+
+Tensor parallel (:func:`shard_module`), a model rank keeps its slice of the
+output channels of each layer that
+:func:`tpu2048_torch.parallel.mesh.param_partition_spec` slices: of each of
+a block's four kernels, and of the dense layer's ``hidden``; the head stays
+whole. A sliced layer takes its whole input through
+:func:`~tpu2048_torch.parallel.mesh.copy_to_model_group` and gathers its
+output slices (after the ReLU, which acts on each channel alone) in the
+whole layer's channel order; a block's four kernels are gathered kernel
+after kernel, so that the next block and the dense layer's NHWC flatten see
+the unsliced module's order. Every model rank then holds the same
+activations: dropout draws its ``(B, hidden)`` mask after the gather, and
+the Q-values are the same on every rank. State dicts, the flax trees and
+checkpoints hold the whole module (:func:`whole_state_dict`,
+:func:`slice_state_dict`).
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from tpu2048_torch.parallel import mesh
 from tpu2048_torch.utils.device import resolve_device
 
 NUM_TILE_CHANNELS = 16  # one-hot depth, Dqn8:274
@@ -56,7 +72,11 @@ class MultiKernelConvBlock(nn.Module):
     builds one OIHW 4x4 weight in each forward (each kernel padded into its
     place in the frame, the four concatenated along O, then cast to
     ``dtype``) and runs one convolution; autograd carries the gradient back
-    into the four kernels."""
+    into the four kernels. With a ``model_group`` (:func:`shard_module`)
+    each kernel holds its slice of the ``features/4`` filters and the block
+    its slice of the output, gathered over the group."""
+
+    model_group: Optional[mesh.ModelGroup] = None
 
     def __init__(self, in_channels: int, features: int = 2048,
                  dtype: torch.dtype = torch.bfloat16, fused: bool = False):
@@ -70,6 +90,9 @@ class MultiKernelConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, C, 4, 4)`` NCHW in ``dtype`` -> ``(B, features, 4, 4)``."""
+        group = self.model_group
+        if group is not None:
+            x = mesh.copy_to_model_group(x, group)
         if self.fused:
             weight = torch.cat([
                 F.pad(conv.weight, FUSED_FRAME[k]) if k in FUSED_FRAME
@@ -79,18 +102,27 @@ class MultiKernelConvBlock(nn.Module):
             before, after = SAME_PADS[4]
             y = F.conv2d(F.pad(x, (before, after, before, after)),
                          weight.to(self.dtype))
-            return F.relu(y + bias.to(self.dtype)[:, None, None])
-        outs = []
-        for k, conv in zip(KERNEL_SIZES, self.convs):
-            before, after = SAME_PADS[k]
-            y = F.conv2d(F.pad(x, (before, after, before, after)),
-                         conv.weight.to(self.dtype))
-            outs.append(y + conv.bias.to(self.dtype)[:, None, None])
-        return F.relu(torch.cat(outs, dim=1))
+            y = F.relu(y + bias.to(self.dtype)[:, None, None])
+        else:
+            outs = []
+            for k, conv in zip(KERNEL_SIZES, self.convs):
+                before, after = SAME_PADS[k]
+                y = F.conv2d(F.pad(x, (before, after, before, after)),
+                             conv.weight.to(self.dtype))
+                outs.append(y + conv.bias.to(self.dtype)[:, None, None])
+            y = F.relu(torch.cat(outs, dim=1))
+        if group is None:
+            return y
+        return mesh.gather_from_model_group(y, group, len(KERNEL_SIZES))
 
 
 class DQNCNN(nn.Module):
-    """Q-network over ``(B, 4, 4)`` int8 exponent boards -> ``(B, 4)`` f32."""
+    """Q-network over ``(B, 4, 4)`` int8 exponent boards -> ``(B, 4)`` f32.
+    ``model_group`` and ``dense_group`` are set by :func:`shard_module`."""
+
+    model_group: Optional[mesh.ModelGroup] = None  # the module's slices'
+    dense_group: Optional[mesh.ModelGroup] = None  # when ``dense`` is sliced
+    sliced: frozenset = frozenset()  # the names of the sliced parameters
 
     def __init__(self, action_space: int = 4, features: int = 2048,
                  hidden: int = 1024, dropout_rate: float = 0.5,
@@ -119,8 +151,12 @@ class DQNCNN(nn.Module):
         for block in self.blocks:
             x = block(x)
         x = x.permute(0, 2, 3, 1).flatten(1)  # flatten in NHWC order
+        if self.dense_group is not None:
+            x = mesh.copy_to_model_group(x, self.dense_group)
         x = F.relu(F.linear(x, self.dense.weight.to(self.dtype))
                    + self.dense.bias.to(self.dtype))
+        if self.dense_group is not None:
+            x = mesh.gather_from_model_group(x, self.dense_group)
         if self.training and self.dropout_rate > 0:
             if generator is None:
                 raise ValueError("train-mode dropout needs a generator")
@@ -177,6 +213,47 @@ def param_count(module: nn.Module) -> int:
 
 
 @torch.no_grad()
+def shard_module(module: DQNCNN, group: Optional[mesh.ModelGroup]
+                 ) -> DQNCNN:
+    """Keep this model rank's slices of a whole module's parameters, in
+    place, by :func:`tpu2048_torch.parallel.mesh.param_partition_spec` over
+    ``group``; returns ``module``. With no group, ``module`` as it is."""
+    if group is None:
+        return module
+    spec = mesh.param_partition_spec(module, group.size)
+    for name, p in module.named_parameters():
+        if spec[name] is not None:
+            p.data = mesh.slice_rows(p.data, group).clone()
+    module.model_group = group
+    module.sliced = frozenset(n for n, axis in spec.items()
+                              if axis is not None)
+    for i, block in enumerate(module.blocks):
+        if f"blocks.{i}.convs.0.weight" in module.sliced:
+            block.model_group = group
+    if "dense.weight" in module.sliced:
+        module.dense_group = group
+    return module
+
+
+def whole_state_dict(module: DQNCNN):
+    """``module.state_dict()`` of the whole module: each sliced parameter
+    gathered over the model group (a collective of the group). Unsliced,
+    the live state dict."""
+    state = module.state_dict()
+    for name in state:  # in one order on every rank
+        if name in module.sliced:
+            state[name] = mesh.gather_rows(state[name], module.model_group)
+    return state
+
+
+def slice_state_dict(module: DQNCNN, state):
+    """This model rank's slices of a whole module's state dict (views), the
+    inverse of :func:`whole_state_dict`."""
+    return {k: mesh.slice_rows(v, module.model_group)
+            if k in module.sliced else v for k, v in state.items()}
+
+
+@torch.no_grad()
 def load_flax_params(module: DQNCNN, params) -> DQNCNN:
     """Load the JAX package's parameter tree into ``module``, in place.
 
@@ -187,7 +264,8 @@ def load_flax_params(module: DQNCNN, params) -> DQNCNN:
     misshapen entry.
     """
     own = module.state_dict()
-    for key, value in flax_to_torch_layout(module, params).items():
+    for key, value in slice_state_dict(
+            module, flax_to_torch_layout(module, params)).items():
         own[key].copy_(value)
     return module
 
@@ -195,7 +273,8 @@ def load_flax_params(module: DQNCNN, params) -> DQNCNN:
 def flax_to_torch_layout(module: DQNCNN, tree):
     """A tree laid out like the flax parameters (the parameters, or Adam's
     moments of them) as ``{state-dict name: float32 CPU tensor}`` in the
-    module's layout. Raises on a missing, extra or misshapen entry."""
+    whole module's layout (a sliced module's slices are checked against
+    it). Raises on a missing, extra or misshapen entry."""
     expected = {f"block{i}" for i in range(len(module.blocks))} | {"dense",
                                                                    "head"}
     if set(tree) != expected:
@@ -211,12 +290,14 @@ def flax_to_torch_layout(module: DQNCNN, tree):
     for name in ("dense", "head"):
         state[f"{name}.weight"] = np.transpose(tree[name]["kernel"])
         state[f"{name}.bias"] = tree[name]["bias"]
-    own = dict(module.named_parameters())
+    own = {k: tuple(p.shape) for k, p in module.named_parameters()}
+    for key in module.sliced:
+        own[key] = (own[key][0] * module.model_group.size, *own[key][1:])
     out = {}
     for key, value in state.items():
-        if tuple(value.shape) != tuple(own[key].shape):
+        if tuple(value.shape) != own[key]:
             raise ValueError(f"{key}: file has {tuple(value.shape)}, module "
-                             f"has {tuple(own[key].shape)}")
+                             f"has {own[key]}")
         out[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
     return out
 
@@ -224,19 +305,22 @@ def flax_to_torch_layout(module: DQNCNN, tree):
 @torch.no_grad()
 def to_flax_params(module: DQNCNN):
     """The inverse of :func:`load_flax_params`: the module's weights as the
-    flax parameter tree of numpy float32 arrays."""
-    def host(t):
-        return t.detach().to("cpu", torch.float32).numpy().copy()
+    flax parameter tree of numpy float32 arrays; a sliced module's gathered
+    over its model group (a collective of the group)."""
+    state = whole_state_dict(module)
+
+    def host(name):
+        return state[name].detach().to("cpu", torch.float32).numpy().copy()
 
     params = {}
-    for i, block in enumerate(module.blocks):
+    for i in range(len(module.blocks)):
         params[f"block{i}"] = {}
-        for k, conv in zip(KERNEL_SIZES, block.convs):
+        for j, k in enumerate(KERNEL_SIZES):
+            conv = f"blocks.{i}.convs.{j}"
             params[f"block{i}"][f"conv{k}x{k}_kernel"] = np.transpose(
-                host(conv.weight), (2, 3, 1, 0))
-            params[f"block{i}"][f"conv{k}x{k}_bias"] = host(conv.bias)
+                host(conv + ".weight"), (2, 3, 1, 0))
+            params[f"block{i}"][f"conv{k}x{k}_bias"] = host(conv + ".bias")
     for name in ("dense", "head"):
-        layer = getattr(module, name)
-        params[name] = {"kernel": host(layer.weight).T.copy(),
-                        "bias": host(layer.bias)}
+        params[name] = {"kernel": host(name + ".weight").T.copy(),
+                        "bias": host(name + ".bias")}
     return params

@@ -3,17 +3,20 @@ the root ``__graft_entry__.py``'s ``dryrun_multichip``.
 
 :func:`run_chunks` drives the real DQN training chunk (fast engine, sharded
 replay, learner updates) at a tiny width and returns a digest that does not
-depend on how the shards are spread: the same config run by one process
-holding all ``dp`` shards, or by ``dp`` ranks of a process group each
-holding one, gives the same integers and parameters within float32
-reduction order. :func:`spawn_ranks` starts ranks of a process group on this
-machine (``torch.multiprocessing``, a free local port), which the tests, the
-CLI's ``--data-parallel N``, ``bench --scale`` and ``chip_smoke.py`` use;
-:func:`dryrun_multichip` runs one chunk over n of them.
+depend on how the shards and the networks are spread: the same config run
+by one process holding all ``dp`` shards and the whole networks, or by a
+``(dp, mp)`` grid of ranks of a process group (each data row holding one
+shard, each model rank its slices), gives the same integers and parameters
+within float32 reduction order. :func:`spawn_ranks` starts ranks of a
+process group on this machine (``torch.multiprocessing``, a free local
+port), which the tests, the CLI's ``--data-parallel N``, ``bench --scale``
+and ``chip_smoke.py`` use; :func:`dryrun_multichip` runs one chunk over n
+of them, ``(n/2, 2)`` on an even n > 1 as JAX's does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import pickle
 import queue as queue_module
@@ -41,7 +44,7 @@ def chunk_config(dp: int, *, features: int, hidden: int, num_blocks: int,
                  memory_per_dp: int, seed: int):
     """The DQN train config of :func:`run_chunks` over ``dp`` shards:
     float32, no dropout, epsilon 0.5 (explore and exploit lanes), one
-    update a step, one replay shard a data-parallel rank."""
+    update a step, one replay shard a data row."""
     from tpu2048_torch.agents.dqn import DQNConfig  # noqa: PLC0415
     from tpu2048_torch.env.env import SIMPLE, EnvConfig  # noqa: PLC0415
     from tpu2048_torch.training.dqn import DQNTrainConfig  # noqa: PLC0415
@@ -65,24 +68,30 @@ def run_chunks(n_devices: int, model_parallel: int, chunks: int, *,
                **config_kw) -> Dict[str, Any]:
     """``chunks`` training chunks of :func:`chunk_config` (``config_kw``,
     e.g. :data:`CONFIG_KW`) over ``n_devices // model_parallel`` shards, or
-    of ``config`` when given: in a process group of that many ranks each
-    rank runs its shard, without one this process runs them all. Returns
-    JAX's digest (``env_steps``, ``episodes``, ``eps``, ``param_sum``,
-    ``loss_sum``) with ``train_steps``, this process's step-kernel
-    ``launches`` and the chunks' ``seconds`` (the device synchronised), and
-    with ``params`` the online network's parameters (on the CPU)."""
+    of ``config`` (at ``model_parallel``) when given: in a process group of
+    ``n_devices`` ranks each data row runs its shard and each model rank its
+    slices, without one this process runs them all with the whole networks.
+    Returns JAX's digest (``env_steps``, ``episodes``, ``eps``,
+    ``param_sum``, ``loss_sum``) with ``train_steps``, this process's
+    step-kernel ``launches`` and the chunks' ``seconds`` (the device
+    synchronised), and with ``params`` the online network's whole
+    parameters (on the CPU)."""
+    from tpu2048_torch.models.dqn import whole_state_dict  # noqa: PLC0415
     from tpu2048_torch.ops import step_kernel as sk  # noqa: PLC0415
     from tpu2048_torch.training import dqn as dtrain  # noqa: PLC0415
 
     dp = n_devices // model_parallel
+    grid = mesh.MeshConfig(dp, model_parallel)
     if mesh.is_initialized():
-        mesh.create_mesh(mesh.MeshConfig(dp, model_parallel))
+        mesh.create_mesh(grid)
+        if mesh.world_size() != n_devices:
+            raise ValueError(f"{mesh.world_size()} ranks for a {dp}x"
+                             f"{model_parallel} grid")
     else:
-        mesh.create_mesh(mesh.MeshConfig(dp, model_parallel), n_devices)
-    config = config or chunk_config(dp, **config_kw)
-    if mesh.is_initialized() and mesh.world_size() != config.replay_shards:
-        raise ValueError(f"{mesh.world_size()} ranks for "
-                         f"{config.replay_shards} shards")
+        mesh.create_mesh(grid, n_devices)
+    config = dataclasses.replace(
+        config or chunk_config(dp, **config_kw),
+        model_parallel=model_parallel if mesh.is_initialized() else 1)
     before = sk.fused_env_step.launches
     device = mesh.local_device(device)
     state = dtrain.init_loop_state(config, device)
@@ -93,9 +102,9 @@ def run_chunks(n_devices: int, model_parallel: int, chunks: int, *,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    model = state.agent.model
+    whole = whole_state_dict(state.agent.model)
     param_sum = sum(p.detach().abs().sum(dtype=torch.float32)
-                    for p in model.parameters())
+                    for p in whole.values())
     digest = {
         "env_steps": state.env_steps,
         "episodes": state.episodes_done,
@@ -107,8 +116,7 @@ def run_chunks(n_devices: int, model_parallel: int, chunks: int, *,
         "seconds": seconds,
     }
     if params:
-        digest["params"] = {k: v.detach().cpu()
-                            for k, v in model.state_dict().items()}
+        digest["params"] = {k: v.detach().cpu() for k, v in whole.items()}
     return digest
 
 
@@ -207,12 +215,13 @@ def spawn_ranks(n: int, fn: Callable[[], Any], backend: Optional[str] = None,
 
 
 def dryrun_multichip(n_devices: int, device=None) -> Dict[str, Any]:
-    """One training chunk sharded over ``n_devices`` ranks at the tiny
-    width (:data:`CONFIG_KW`): envs, dedup lanes and replay shards a rank,
-    gradients all-reduced. On the card it needs ``n_devices`` cards (NCCL,
-    one a rank) and raises otherwise; ``device="cpu"`` runs gloo ranks.
-    Returns rank 0's digest. Tensor parallelism, which JAX's dry run adds
-    on an even count, is not yet ported."""
+    """One training chunk over ``n_devices`` ranks at the tiny width
+    (:data:`CONFIG_KW`), on a ``(n/2, 2)`` grid when n is even and above 1,
+    as JAX's dry run does, else ``(n, 1)``: envs, dedup lanes and replay
+    shards a data row, the networks sliced over each row's model ranks,
+    gradients averaged over the data group. On the card it needs
+    ``n_devices`` cards (NCCL, one a rank) and raises otherwise;
+    ``device="cpu"`` runs gloo ranks. Returns rank 0's digest."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -220,15 +229,17 @@ def dryrun_multichip(n_devices: int, device=None) -> Dict[str, Any]:
             raise RuntimeError(f"dryrun_multichip({n_devices}) on the card "
                                f"needs {n_devices} cards, this machine has "
                                f"{have}")
+    mp = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    dp = n_devices // mp
     kw = dict(CONFIG_KW)
     digests = spawn_ranks(n_devices, functools.partial(
-        run_chunks, n_devices, 1, 1, **kw), device=device)
+        run_chunks, n_devices, mp, 1, **kw), device=device)
     d = digests[0]
-    steps = kw["envs_per_dp"] * n_devices * kw["steps_per_chunk"]
+    steps = kw["envs_per_dp"] * dp * kw["steps_per_chunk"]
     if d["env_steps"] != steps:
         raise RuntimeError(f"dryrun_multichip({n_devices}): env_steps "
                            f"{d['env_steps']}, expected {steps}")
-    print(f"dryrun_multichip({n_devices}): ranks={n_devices} "
+    print(f"dryrun_multichip({n_devices}): mesh=({dp}, {mp}) "
           f"env_steps={d['env_steps']} episodes={d['episodes']} "
           f"eps={d['eps']:.3f} OK", flush=True)
     return d

@@ -26,19 +26,24 @@ device.
 the learner batch S ways (:mod:`tpu2048_torch.replay.sharded`); shard s has
 its own env, actor and sampler generators, keyed by ``(seed, s)`` (shard 0
 by the unsharded loop's keys, so that one shard is that loop bit for bit).
-Data parallel over the ranks of a process group
-(:mod:`tpu2048_torch.parallel.mesh`), a rank holds only its shards, their
-lanes and a replica of the agent, draws only from its shards' generators
-and averages each update's gradients over the ranks before Adam; the
-step's read becomes a sum over the ranks, so every host decision is taken
-alike everywhere, and a run of R ranks equals one process with the same S.
+Over the ``(D, M)`` grid of a process group
+(:mod:`tpu2048_torch.parallel.mesh`), a data row holds only its shards,
+their lanes and the agent, draws only from its shards' generators and
+averages each update's gradients over the data group before Adam; the
+step's read becomes a sum over the data group, so every host decision is
+taken alike everywhere, and a run of D data rows equals one process with
+the same S. With ``model_parallel`` M > 1 each of a row's M ranks holds its
+slices of the networks (:func:`tpu2048_torch.models.dqn.shard_module`) and
+runs the row's lanes, as XLA runs arrays replicated over the ``model``
+axis; the learner's dropout generator is keyed by the data index, so the
+model ranks of a row draw the same masks.
 
 Periodic operations keyed on episodes run between chunks, as in the JAX
 loop: target sync every 20 episodes, the prune of the 10 worst buffered
 episodes (of each shard, ``prune_n // S``) every 50, a full checkpoint
 every 100, a named checkpoint at each new best tile >= 512, and the
 optional rollback-on-regression. They read the running sums reduced over
-the ranks.
+the data group.
 
 With ``trace_env0`` each vector step adds env 0's row of the reference's
 per-step debug CSV (mainDQL:22-25, 234) to a list on the device; the host
@@ -51,8 +56,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import time
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,6 +69,7 @@ from tpu2048_torch.agents.tabular import one_hot
 from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SIMPLE, EnvConfig
+from tpu2048_torch.models import dqn as dqn_model
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops.step_kernel import from_cell_major
 from tpu2048_torch.parallel import mesh
@@ -93,6 +100,9 @@ class DQNTrainConfig:
     train_batch: int = 64  # Dqn8:249 batch_size
     steps_per_chunk: int = 16  # vector steps between host-side operations
     replay_shards: int = 1  # envs, replay and batch split S ways (ranks)
+    # Ranks of a model group, each with its slices of the networks (JAX's
+    # train(model_parallel=...)); the process group has D x M ranks.
+    model_parallel: int = 1
     target_sync_episodes: int = 20  # mainDQL:274
     prune_episodes: int = 50  # mainDQL:318
     prune_n: int = 10  # mainDQL:320
@@ -141,11 +151,31 @@ def _clone(tree):
     return copy.deepcopy(tree)
 
 
+MOMENTS = ("exp_avg", "exp_avg_sq")  # Adam's per-parameter state, sliced
+
+
+def _map_moments(model: dqn_model.DQNCNN, optimizer: Dict, fn) -> Dict:
+    """Adam's state dict ``optimizer`` with ``fn`` applied to the moments
+    of each parameter ``model`` holds a slice of (in parameter order, as
+    the collectives need); unsliced, ``optimizer`` as it is."""
+    if not model.sliced:
+        return optimizer
+    names = [n for n, _ in model.named_parameters()]
+    return dict(optimizer, state={i: {
+        k: fn(v) if k in MOMENTS and names[i] in model.sliced else v
+        for k, v in st.items()} for i, st in optimizer["state"].items()})
+
+
 def _agent_dict(agent: dqnlib.DQNTrainState) -> Dict:
+    """The whole agent: a sliced agent's networks and Adam's moments
+    gathered over its model group (a collective of the group)."""
+    model = agent.model
     return {
-        "model": agent.model.state_dict(),
-        "target": agent.target.state_dict(),
-        "optimizer": agent.optimizer.state_dict(),
+        "model": dqn_model.whole_state_dict(model),
+        "target": dqn_model.whole_state_dict(agent.target),
+        "optimizer": _map_moments(
+            model, agent.optimizer.state_dict(),
+            lambda v: mesh.gather_rows(v, model.model_group)),
         "step_counter": agent.step_counter,
         "train_steps": agent.train_steps,
         "generator": agent.generator.get_state(),
@@ -153,19 +183,27 @@ def _agent_dict(agent: dqnlib.DQNTrainState) -> Dict:
 
 
 def _load_agent(agent: dqnlib.DQNTrainState, state_payload: Dict) -> None:
-    """The agent of a loop state's payload; a rank's ``learner_generator``
-    (:meth:`DQNLoopState.rank_part`) wins over the agent's generator."""
+    """The agent of a loop state's payload (whole; a sliced agent takes its
+    slices); a rank's ``learner_generator`` (:meth:`DQNLoopState.rank_part`)
+    wins over the agent's generator, and None keeps the generator as it
+    is."""
     payload = state_payload["agent"]
-    agent.model.load_state_dict(payload["model"])
-    agent.target.load_state_dict(payload["target"])
+    model = agent.model
+    model.load_state_dict(dqn_model.slice_state_dict(model,
+                                                     payload["model"]))
+    agent.target.load_state_dict(dqn_model.slice_state_dict(
+        agent.target, payload["target"]))
+    optimizer = _map_moments(model, payload["optimizer"],
+                             lambda v: mesh.slice_rows(v, model.model_group))
     # Optimizer.load_state_dict keeps tensors that are already on the
     # parameters' device and dtype: clone, so that a restored state never
     # shares memory with the payload (the rollback store keeps it).
-    agent.optimizer.load_state_dict(_clone(payload["optimizer"]))
+    agent.optimizer.load_state_dict(_clone(optimizer))
     agent.step_counter = int(payload["step_counter"])
     agent.train_steps = int(payload["train_steps"])
-    agent.generator.set_state(state_payload.get("learner_generator",
-                                                payload["generator"]))
+    generator = state_payload.get("learner_generator", payload["generator"])
+    if generator is not None:
+        agent.generator.set_state(generator)
 
 
 def _generators(source) -> List[torch.Generator]:
@@ -195,8 +233,8 @@ def _set_generator_states(source, states: torch.Tensor) -> None:
 @dataclasses.dataclass
 class DQNLoopState:
     """Everything the training loop carries across chunks: on a rank of a
-    process group, its lanes, its replay shards and a replica of the agent
-    (``layout`` says which).
+    process group, its data row's lanes and replay shards and the agent (its
+    slices of it when sliced; ``layout`` says which).
 
     ``bits`` feeds the env: the env kernel's bit source (``(8, B)`` rows a
     step) on the fast engine, the classic env's spawn source on the lax
@@ -230,10 +268,12 @@ class DQNLoopState:
     last_loss: torch.Tensor  # () f32
 
     COUNTERS = ("episodes_done", "env_steps", "update_debt", "loss_count")
-    SUMS = ("sum_return", "sum_score", "sum_length", "best_tile",
-            "sum_final_tile", "tile_hist", "loss_sum", "last_loss")
+    # The sums over a data row's own lanes, then the replicated loss sums.
+    LANE_SUMS = ("sum_return", "sum_score", "sum_length", "best_tile",
+                 "sum_final_tile", "tile_hist")
+    SUMS = (*LANE_SUMS, "loss_sum", "last_loss")
     # The payload's keys that are alike on every rank; the others, with the
-    # learner's (dropout) generator, are a rank's own part.
+    # learner's (dropout) generator, are a data row's own part.
     REPLICATED = ("agent", *COUNTERS, "loss_sum", "last_loss", "world",
                   "replay_shards")
 
@@ -243,49 +283,64 @@ class DQNLoopState:
 
     @property
     def replay_shards(self) -> int:
-        """The run's shards, over every rank."""
-        return len(self.layout.shards) * self.layout.world
+        """The run's shards, over every data row."""
+        return len(self.layout.shards) * self.layout.dp
 
-    def state_dict(self) -> Dict:
-        """The whole state as nested dicts of tensors and numbers (the
-        live tensors, not copies), with the world size and shard count
-        that wrote it."""
+    def _payload(self) -> Dict:
+        """:meth:`state_dict` without the agent (the live tensors)."""
+        shards = self.layout.shards
         return {
             "env_state": _tensors(self.env_state),
             "dedup": _tensors(self.dedup),
             "buffer": _tensors(self.buffer),
-            "agent": _agent_dict(self.agent),
             "bits": _generator_states(self.bits),
             "draws": _generator_states(self.draws),
-            "world": self.layout.world,
+            "world": self.layout.dp,
             "replay_shards": self.replay_shards,
+            "shards": [shards.start, shards.stop],
             **{k: getattr(self, k) for k in self.COUNTERS + self.SUMS},
         }
 
+    def state_dict(self) -> Dict:
+        """The whole state as nested dicts of tensors and numbers (the
+        live tensors, not copies, but for a sliced agent's), with the
+        data-parallel size (``world``), the shard count and the shards
+        (``[start, stop)``) that wrote it. The agent is whole: a sliced
+        agent is gathered over its model group, a collective of the
+        group."""
+        return {**self._payload(), "agent": _agent_dict(self.agent)}
+
     def rank_part(self) -> Dict:
-        """This rank's own part of :meth:`state_dict`: its lanes, shards,
-        generators and sums. A checkpoint holds rank 0's whole state and the
-        other ranks' parts; a rank's payload is rank 0's overlaid with its
-        part (``learner_generator`` replaces the agent's)."""
-        payload = self.state_dict()
-        part = {k: v for k, v in payload.items() if k not in self.REPLICATED}
-        part["learner_generator"] = payload["agent"]["generator"]
+        """This data row's own part of :meth:`state_dict`, no collective:
+        its lanes, shards (named by ``shards``), generators and sums. A
+        checkpoint holds data row 0's whole state and the other rows'
+        parts; a rank's payload is assembled from them for its shards
+        (:func:`shard_payload`, ``learner_generator`` replacing the
+        agent's)."""
+        part = {k: v for k, v in self._payload().items()
+                if k not in self.REPLICATED}
+        part["learner_generator"] = self.agent.generator.get_state()
         return part
 
     def check_layout(self, payload: Dict) -> None:
-        """Raise unless ``payload`` was written at this state's world size
-        and shard count (a payload without them: one rank, one shard)."""
-        got = (payload.get("world", 1), payload.get("replay_shards", 1))
-        if got != (self.layout.world, self.replay_shards):
+        """Raise unless ``payload`` has this run's shard count and this
+        rank's lanes for its shards (a payload without a count: one
+        shard). Any data- and model-parallel sizes resume it, as JAX's
+        restore puts global arrays on any mesh; other global shapes raise,
+        as there."""
+        got = (payload.get("replay_shards", 1),
+               payload["dedup"]["saved_count"].shape[0])
+        if got != (self.replay_shards, self.layout.num_envs):
             raise ValueError(
-                f"the checkpoint was written by {got[0]} rank(s) with "
-                f"{got[1]} replay shard(s); this run has "
-                f"{self.layout.world} rank(s) and {self.replay_shards}: "
-                "resuming at another world size or shard count is not "
-                "supported (it needs the checkpoint resharded)")
+                f"the checkpoint holds {got[0]} replay shard(s) and "
+                f"{got[1]} env(s) in this rank's shards; this run has "
+                f"{self.replay_shards} and {self.layout.num_envs}: "
+                "resuming at another shard count or env count is not "
+                "supported")
 
     def load_state_dict(self, payload: Dict) -> None:
-        """Copy ``payload`` (from :meth:`state_dict`, on any device) into
+        """Copy ``payload`` (:meth:`state_dict`'s, on any device, or one
+        that :func:`shard_payload` assembled for this rank's shards) into
         this state; raise if its layout differs."""
         self.check_layout(payload)
         device = self.device
@@ -304,8 +359,91 @@ class DQNLoopState:
             setattr(self, k, payload[k].to(device, copy=True))
 
 
+def _lane_axis(name: str) -> int:
+    """The lane axis of a per-lane tensor of the env state or the dedup
+    caches: 1 of the fast env's cell-major ``boards`` ``(16, B)``, else 0."""
+    return 1 if name == "boards" else 0
+
+
+def _shard_piece(part: Dict, held: range, s: int) -> Dict:
+    """Shard ``s``'s lanes, replay shard and generator states, views of a
+    part that holds the shards ``held`` (one shard: a flat buffer and one
+    generator state; several: a leading shard axis)."""
+    i, n = s - held.start, len(held)
+
+    def lanes(tree):
+        out = {}
+        for k, v in tree.items():
+            per = v.shape[_lane_axis(k)] // n
+            out[k] = v.narrow(_lane_axis(k), i * per, per)
+        return out
+
+    buffer = part["buffer"]
+    return {"env_state": lanes(part["env_state"]),
+            "dedup": lanes(part["dedup"]),
+            "buffer": buffer if n == 1 else {k: v[i]
+                                             for k, v in buffer.items()},
+            "bits": part["bits"] if n == 1 else part["bits"][i],
+            "draws": part["draws"] if n == 1 else part["draws"][i]}
+
+
+def _join_pieces(pieces: List[Dict]) -> Dict:
+    """The shards' pieces side by side, as a part holding them has them."""
+    if len(pieces) == 1:
+        return dict(pieces[0])
+
+    def lanes(key):
+        return {k: torch.cat([p[key][k] for p in pieces], _lane_axis(k))
+                for k in pieces[0][key]}
+
+    return {"env_state": lanes("env_state"), "dedup": lanes("dedup"),
+            "buffer": {k: torch.stack([p["buffer"][k] for p in pieces])
+                       for k in pieces[0]["buffer"]},
+            "bits": torch.stack([p["bits"] for p in pieces]),
+            "draws": torch.stack([p["draws"] for p in pieces])}
+
+
+def shard_payload(head: Dict, parts: List[Tuple[range, Dict]],
+                  shards: range) -> Dict:
+    """The payload of the data row that owns ``shards``, assembled from a
+    checkpoint: ``head``, its replicated part (data row 0's
+    :meth:`DQNLoopState.state_dict`), and every part with the shards it
+    holds (``head`` among them). Each shard's lanes, replay shard and
+    generators come from the part that holds it. The running sums and the
+    dropout generator are a data row's own: a part that holds exactly
+    ``shards`` gives them; else (a reshard) the row that owns shard 0 takes
+    the totals over every part and the best tile's maximum, so that
+    :func:`host_sums` reads the same totals, and the others start at zero
+    and keep their own freshly keyed generator. Raises ValueError when a
+    shard is in no part."""
+    pieces = []
+    for s in shards:
+        holder = [(held, part) for held, part in parts if s in held]
+        if not holder:
+            raise ValueError(f"no part of the checkpoint holds replay shard "
+                             f"{s}: it holds {head.get('replay_shards', 1)}")
+        pieces.append(_shard_piece(holder[0][1], holder[0][0], s))
+    payload = {k: head[k] for k in DQNLoopState.REPLICATED if k in head}
+    payload.update(_join_pieces(pieces))
+    payload["shards"] = [shards.start, shards.stop]
+    own = [part for held, part in parts if held == shards]
+    if own:
+        payload.update({k: own[0][k] for k in DQNLoopState.LANE_SUMS})
+        payload["learner_generator"] = own[0].get(
+            "learner_generator", head["agent"]["generator"])
+        return payload
+    for k in DQNLoopState.LANE_SUMS:
+        values = torch.stack([part[k] for _, part in parts])
+        total = (values.amax(0) if k == "best_tile"
+                 else values.sum(0, dtype=values.dtype))
+        payload[k] = total if shards.start == 0 else torch.zeros_like(total)
+    payload["learner_generator"] = (head["agent"]["generator"]
+                                    if shards.start == 0 else None)
+    return payload
+
+
 def _seeds(seed: int, key: int):
-    """``(agent, env, draws)`` seeds of shard (or rank) ``key``: shard 0
+    """``(agent, env, draws)`` seeds of shard (or data row) ``key``: shard 0
     keeps the unsharded loop's, shard s > 0 takes the child ``s`` of the
     run's seed sequence."""
     seq = (np.random.SeedSequence(seed) if key == 0
@@ -324,18 +462,19 @@ def init_loop_state(config: DQNTrainConfig, device) -> DQNLoopState:
     """Fresh envs, networks and an empty buffer on ``device``, for this
     process's rank (:func:`tpu2048_torch.parallel.mesh.rank_layout`; all
     shards without a process group). The networks are seeded from
-    ``config.seed`` (and rank 0's broadcast to the others), each shard's
-    env and draw generators from ``(seed, shard)``, the dropout generator
-    of rank r > 0 from ``(seed, r)``."""
+    ``config.seed`` (rank 0's broadcast to the others, then sliced over the
+    model group), each shard's env and draw generators from ``(seed,
+    shard)``, the dropout generator of data row d > 0 from ``(seed, d)``."""
     layout = mesh.rank_layout(config.num_envs, config.train_batch,
-                              config.replay_shards)
+                              config.replay_shards,
+                              model_parallel=config.model_parallel)
     agent_seed = _seeds(config.seed, 0)[0]
-    agent = dqnlib.create_train_state(config.agent, device, agent_seed)
+    agent = dqnlib.create_train_state(config.agent, device, agent_seed,
+                                      layout.model)
     device = next(agent.model.parameters()).device
-    if layout.rank:
-        agent.generator.manual_seed(_seeds(config.seed, layout.rank)[0])
-    mesh.broadcast_module(agent.model)
-    mesh.broadcast_module(agent.target)
+    if layout.data_index:
+        agent.generator.manual_seed(_seeds(config.seed,
+                                           layout.data_index)[0])
     env_seeds = [_seeds(config.seed, s)[1] for s in layout.shards]
     draw_seeds = [_seeds(config.seed, s)[2] for s in layout.shards]
     b = layout.num_envs
@@ -386,12 +525,13 @@ def warm_start_state(state: DQNLoopState, directory: str,
 
     Carried from the source checkpoint: the agent (both networks, Adam's
     state with the decayed LR, the epsilon step counter, the update count,
-    the learner's generator) and the replay buffer (this rank's shards).
+    the learner's generator) and the replay buffer (this rank's shards,
+    from the parts that hold them: any data- or model-parallel size).
     Fresh from ``state``: envs, dedup caches, the env's and the draws'
     generators, episode and env-step counters, update debt and every metric
     sum. ``named`` selects a named checkpoint, else ``step`` or the latest
-    step; a missing source raises FileNotFoundError, one of another world
-    size or shard count ValueError.
+    step; a missing source raises FileNotFoundError, one of another shard
+    count ValueError.
     """
     from tpu2048_torch.checkpoint.ckpt import CheckpointManager
 
@@ -400,12 +540,12 @@ def warm_start_state(state: DQNLoopState, directory: str,
         if not mgr.has_named(named):
             raise FileNotFoundError(
                 f"no named checkpoint {named!r} in {directory}")
-        payload = mgr.read_named(named)
+        payload = mgr.read_named(named, state.layout.shards)
     else:
         s = step if step is not None else mgr.latest_step()
         if s is None:
             raise FileNotFoundError(f"no step checkpoints in {directory}")
-        payload = mgr.read(s)
+        payload = mgr.read(s, state.layout.shards)
     state.check_layout(payload)
     _load_agent(state.agent, payload)
     state.buffer = _from_tensors(replaylib.ReplayBuffer, payload["buffer"],
@@ -483,10 +623,11 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
     short = (sharded.shard_sizes(st.buffer) < per_shard).sum()
     # The only wait for the device inside a chunk: this step's episode
     # ends, LR triggers and short shards, in one transfer, summed over the
-    # ranks. The learner's trip count and the LR are host values, alike on
-    # every rank.
+    # data group (a model group's ranks hold the same lanes). The
+    # learner's trip count and the LR are host values, alike on every rank.
+    data_group = st.layout.data_group
     counts = mesh.all_reduce(torch.stack([
-        ts.done.sum(), triggers.sum(), short]))
+        ts.done.sum(), triggers.sum(), short]), data_group)
     n_done, n_trigger, n_short = counts.tolist()
     dqnlib.maybe_decay_lr(acfg, st.agent, n_trigger)
 
@@ -500,7 +641,8 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
         debt_after = debt - n_upd if can_train else 0
 
     batch_size = st.layout.batch
-    grad_reduce = mesh.average_gradients if mesh.is_initialized() else None
+    grad_reduce = (None if data_group is None else functools.partial(
+        mesh.average_gradients, group=data_group))
     loss_sum = torch.zeros((), dtype=torch.float32, device=st.device)
     with record_function("learner"):
         for _ in range(n_upd):
@@ -539,17 +681,19 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
 
 
 def host_sums(state: DQNLoopState) -> Dict:
-    """The running values the host loop reads, over every rank: episodes
-    (``ep``), the sums of returns, scores, lengths and final tiles, the
-    buffer's size, the tile histogram (summed over the ranks), the best
-    tile (their maximum) and the loss sum and count (replicated)."""
+    """The running values the host loop reads, over every data row:
+    episodes (``ep``), the sums of returns, scores, lengths and final tiles,
+    the buffer's size, the tile histogram (summed over the data group), the
+    best tile (its maximum) and the loss sum and count (replicated)."""
     local = torch.cat([
         torch.stack([state.sum_return, state.sum_score, state.sum_length,
                      state.sum_final_tile]).to(torch.float64),
         sharded.total_size(state.buffer).to(torch.float64).reshape(1),
         state.tile_hist.to(torch.float64)])
-    ret, score, length, tiles, size, *hist = mesh.all_reduce(local).tolist()
-    best = mesh.all_reduce(state.best_tile.clone(), "max")
+    group = state.layout.data_group
+    ret, score, length, tiles, size, *hist = mesh.all_reduce(
+        local, group).tolist()
+    best = mesh.all_reduce(state.best_tile.clone(), group, "max")
     return dict(ep=state.episodes_done, ret=ret, score=score, length=length,
                 tiles=tiles, size=int(size), hist=[int(h) for h in hist],
                 best=int(best), loss=float(state.loss_sum),
