@@ -92,9 +92,13 @@ can be timed in one run on one card.
     must equal the windows played, with no other kernel, a max-tile mode of
     64 or 128 and action counts summing to the game lengths, and one warm
     512-game eval under ``torch.profiler``; ``bench`` at
-    its defaults (65536 lanes, 256 steps, Philox); and ``bench --tabular``
-    (batch 4096, capacity 2**24, 1 + 4 chunks of 256 steps) with the step,
-    gather and scatter launches it must make.
+    its defaults (65536 lanes, 256 steps, Philox); ``bench --rollout-k 1``
+    at the same defaults (one step-kernel launch a step, generator bits),
+    its totals at B=4096 over 32 steps against ``plain_env_step`` on the
+    card fed the same rows, and its device time a step under
+    ``torch.profiler``; and ``bench --tabular`` (batch 4096, capacity 2**24,
+    1 + 4 chunks of 256 steps) with ``--table-backend auto`` and
+    ``legacy``, with the step, gather and scatter launches each must make.
 12. Time the rollout kernel (k=16) at B=65536 with Philox and with external
     bits, and with latches at B=512, 4096, 16384, 20480, 24576, 32768 and
     65536, in both layouts: eager, device only, the host time of the
@@ -202,8 +206,8 @@ can be timed in one run on one card.
     tensor-parallel speed (every collective goes through the host).
 
 Then one JSON line describing the four kernels (the step kernel's launches
-counted over phases 4, 13, 16, 17, 19 and 20, the table kernels' over
-phases 7 and 18), and the result line.
+counted over phases 4, 11, 13, 16, 17, 19 and 20, the table kernels' over
+phases 7, 11 and 18), and the result line.
 
 Phase 13's ``train dqn`` also writes env 0's ``--debug-csv`` (the
 reference's header, one row a vector step) under ``--watchdog``, and
@@ -271,6 +275,9 @@ ROLLOUT_TIMING_CASES = (
     (EVAL_GAMES, True, True), (4096, True, True), (16384, True, True),
     (20480, True, True), (24576, True, True), (32768, True, True),
     (BIG_EVAL, True, True))
+# Phase 11's check of the single-step bench (`bench --rollout-k 1`): its
+# path at this batch and step count against plain_env_step on the card.
+SINGLE_STEP_CHECK = (4096, 32)
 # Actions outside [-1, 4) that phase 3 mixes in: the step leaves the board.
 OUT_OF_RANGE_ACTIONS = (4, 7, 100)
 STALL_LIMIT = 3  # small, so that stall cutoffs happen in the card matrix
@@ -1494,14 +1501,94 @@ def profile_random_eval(torch):
               f"{e.count} calls: {e.key[:100]}")
 
 
+@contextlib.contextmanager
+def plain_step_kernel(sk):
+    """``fused_env_step`` replaced by ``plain_env_step`` for the body (the
+    fast env calls it through the module)."""
+    kernel = sk.fused_env_step
+    sk.fused_env_step = sk.plain_env_step
+    try:
+        yield
+    finally:
+        sk.fused_env_step = kernel
+
+
+def single_step_check(sk, torch, bench):
+    """``bench.main(rollout_k=1)`` at SINGLE_STEP_CHECK against the same
+    steps through ``plain_env_step`` on the card, fed the generator's rows
+    (the reset's, the warm steps', the timed steps') through ReplayBits:
+    the timed run's reward and episode totals must be equal."""
+    from tpu2048_torch.env.fast import (GeneratorBits, ReplayBits,
+                                        fast_reset, fast_step)
+
+    b, steps = SINGLE_STEP_CHECK
+    device = torch.device("cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        row = bench.main(batch=b, steps=steps, rollout_k=1)
+    source = GeneratorBits(0, device)
+    bits = ReplayBits([source(b) for _ in range(1 + 2 * steps)])
+    with plain_step_kernel(sk):
+        state = fast_reset(bits, b, bench.ROLLOUT_ENV)
+        for _ in range(2):  # the warm run, then the timed one
+            reward = torch.zeros((), dtype=torch.float32, device=device)
+            dones = torch.zeros((), dtype=torch.int64, device=device)
+            for _ in range(steps):
+                state, ts = fast_step(bench.ROLLOUT_ENV, state, bits)
+                reward += ts.reward.sum(dtype=torch.float32)
+                dones += ts.done.sum()
+    want = (float(reward), int(dones))
+    if (row["launches"] != steps or (row["reward"], row["episodes"]) != want
+            or not want[1] > 0):
+        fail(f"bench --rollout-k 1 at B={b}, {steps} steps: {row} against "
+             f"plain_env_step's reward and episodes {want}")
+    print(f"phase 11: bench --rollout-k 1 at B={b}, {steps} steps == "
+          f"plain_env_step on the card from the same generator rows: "
+          f"reward {want[0]!r}, {want[1]} episodes, {row['launches']} "
+          f"step-kernel launches")
+
+
+def profile_single_step(torch, bench, row):
+    """One more single-step bench at ``row``'s shape under torch.profiler:
+    the device time a step beside the unprofiled row's time a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, steps = row["batch"], row["steps"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bench.main(batch=b, steps=steps, rollout_k=1)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    # Warm and timed runs: 2 x steps steps.
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    step_ms = 1e3 * row["seconds"] / steps
+    device_step = device_ms / (2 * steps)
+    print(f"phase 11: bench --rollout-k 1 under the profiler, B={b}: "
+          f"{device_step:.4f} ms of device time a step in "
+          f"{sum(e.count for e in kernels) / (2 * steps):.1f} kernels; the "
+          f"unprofiled step takes {step_ms:.4f} ms: the device is busy "
+          f"{100 * device_step / step_ms:.1f}% of it")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"phase 11:   {e.self_device_time_total / 1e3 / (2 * steps):.5f}"
+              f" ms a step, {e.count} calls: {e.key[:100]}")
+
+
 def phase_rollout_path(sk, tk, torch):
     """The rollout slice's path through the CLI: random eval (512 games,
-    simple and shaped; 65536 games), bench and bench --tabular. Returns the
-    rollout kernel's launches over the path."""
+    simple and shaped; 65536 games), bench, bench --rollout-k 1 and bench
+    --tabular on both tables. Returns each kernel's launches over the
+    path's CLI calls and the random evals' summaries."""
     from tpu2048_torch import bench
     from tpu2048_torch.cli.main import main as cli_main
 
-    rollout_launches = 0
+    launches = dict.fromkeys(("step", "rollout", "gather", "scatter"), 0)
+
+    def count(counts):
+        for name in launches:
+            launches[name] += counts[name]
+
     summaries = {}
     evals = [("simple", EVAL_GAMES), ("simple, warm", EVAL_GAMES),
              ("shaped", EVAL_GAMES), ("simple", BIG_EVAL)]
@@ -1524,7 +1611,7 @@ def phase_rollout_path(sk, tk, torch):
                 or sum(summary["action_counts"].values()) != total_length
                 or summary["env_steps"] != summary["batch_steps"] * games):
             fail(f"implausible random eval ({label}): {summary}")
-        rollout_launches += counts["rollout"]
+        count(counts)
         summaries[label, games] = summary
         secs = summary["seconds"]
         print(f"phase 11: eval --policy random, {label}, {games} games: "
@@ -1545,25 +1632,56 @@ def phase_rollout_path(sk, tk, torch):
             or row["bits"] != "philox" or "vs_baseline" in row
             or not row["env_steps_per_s"] > 0 or not row["episodes"] > 0):
         fail(f"bench: {row}, launches {counts}")
-    rollout_launches += counts["rollout"]
+    count(counts)
     print(f"phase 11: bench: {json.dumps(row)}; {counts['rollout']} "
           f"rollout launches (warm-up and timed run), {wall:.3f} s for the "
           f"CLI call")
 
     text, counts, wall = run_path(sk, tk, torch, cli_main,
-                                  ["bench", "--tabular"])
-    tab = json.loads(text)
+                                  ["bench", "--rollout-k", "1"])
+    single = json.loads(text)
+    if (single["launches"] != single["steps"] or single["rollout_k"] != 1
+            or counts["step"] != 2 * single["steps"]
+            or single["batch"] != BENCH_BATCH
+            or single["bits"] != "generator" or counts["rollout"]
+            or counts["gather"] or counts["scatter"]
+            or not single["env_steps_per_s"] > 0
+            or not single["episodes"] > 0):
+        fail(f"bench --rollout-k 1: {single}, launches {counts}")
+    count(counts)
+    print(f"phase 11: bench --rollout-k 1: {json.dumps(single)}; "
+          f"{counts['step']} step-kernel launches (warm-up and timed run), "
+          f"no other kernel; {wall:.3f} s for the CLI call; "
+          f"{single['env_steps_per_s'] / row['env_steps_per_s']:.4f}x the "
+          f"K={ROLLOUT_K} rollout bench's env-steps/s")
+    single_step_check(sk, torch, bench)
+    profile_single_step(torch, bench, single)
+
     # One warm chunk and the timed ones.
     steps = (1 + bench.TABULAR_TIMED_CHUNKS) * bench.TABULAR_STEPS_PER_CHUNK
-    if (tab["batch"] != 4096
-            or tab["capacity_log2"] != bench.TABULAR_CAPACITY_LOG2
-            or counts["step"] != steps or counts["scatter"] != steps
-            or counts["gather"] != 2 * steps or counts["rollout"]
-            or not tab["env_steps_per_s"] > 0):
-        fail(f"bench --tabular: {tab}, launches {counts}")
-    print(f"phase 11: bench --tabular: {json.dumps(tab)}; launches {counts} "
-          f"for {steps} steps; {wall:.3f} s for the CLI call")
-    return rollout_launches, summaries
+    tabs = {}
+    for backend, resolved, tables in (("auto", "packed", 1),
+                                      ("legacy", "legacy", 0)):
+        argv = ["bench", "--tabular", "--table-backend", backend]
+        text, counts, wall = run_path(sk, tk, torch, cli_main, argv)
+        tab = json.loads(text)
+        if (tab["batch"] != 4096 or tab["table_backend"] != resolved
+                or tab["capacity_log2"] != bench.TABULAR_CAPACITY_LOG2
+                or counts["step"] != steps
+                or counts["scatter"] != tables * steps
+                or counts["gather"] != 2 * tables * steps
+                or counts["rollout"] or not tab["env_steps_per_s"] > 0):
+            fail(f"bench --tabular --table-backend {backend}: {tab}, "
+                 f"launches {counts}")
+        count(counts)
+        tabs[resolved] = tab
+        print(f"phase 11: bench --tabular --table-backend {backend}: "
+              f"{json.dumps(tab)}; launches {counts} for {steps} steps; "
+              f"{wall:.3f} s for the CLI call")
+    print(f"phase 11: bench --tabular, legacy against packed in this call: "
+          f"{tabs['legacy']['ms_per_step'] / tabs['packed']['ms_per_step']:.3f}"
+          f"x the ms a step")
+    return launches, summaries
 
 
 def rollout_work(sk, lanes, k, bits):
@@ -3554,7 +3672,7 @@ def main():
     del data
     torch.cuda.synchronize()
     rollout_err = phase_rollout_equal(sk, torch, device)
-    rollout_launches, random_fast = phase_rollout_path(sk, tk, torch)
+    path_launches, random_fast = phase_rollout_path(sk, tk, torch)
     rollout_row = phase_rollout_timings(sk, torch, device,
                                         ROLLOUT_TIMING_CASES)[0]
     dqn_launches, dqn_rows = phase_dqn_path(sk, tk, torch, device)
@@ -3592,8 +3710,9 @@ def main():
             "route": "cuda",
             "source": "tpu2048_torch/csrc/step_kernel.cu",
             "replaces": "tpu2048/ops/pallas_step.py:308",
-            "launches": launches + dqn_launches + fused_launches
-            + legacy_launches + parallel_launches + tensor_launches,
+            "launches": launches + path_launches["step"] + dqn_launches
+            + fused_launches + legacy_launches + parallel_launches
+            + tensor_launches,
             "max_abs_err": max_err,
             "ms": main_row["ms"],
             "graph_ms": main_row["graph_ms"],
@@ -3605,17 +3724,17 @@ def main():
             "library_graph_ms": None,
         },
         table_entry("bucket_gather", 65,
-                    table_launches["gather"] + lax_launches["gather"],
-                    gather_err),
+                    table_launches["gather"] + path_launches["gather"]
+                    + lax_launches["gather"], gather_err),
         table_entry("bucket_scatter", 112,
-                    table_launches["scatter"] + lax_launches["scatter"],
-                    scatter_err),
+                    table_launches["scatter"] + path_launches["scatter"]
+                    + lax_launches["scatter"], scatter_err),
         {
             "name": "rollout_kernel",
             "route": "cuda",
             "source": "tpu2048_torch/csrc/step_kernel.cu",
             "replaces": "tpu2048/ops/pallas_step.py:497",
-            "launches": rollout_launches,
+            "launches": path_launches["rollout"],
             "max_abs_err": rollout_err,
             "ms": rollout_row["ms"],
             "graph_ms": rollout_row["graph_ms"],

@@ -1,17 +1,21 @@
 """The port's ``bench`` subcommand on the CPU, at a small size: one JSON
 line with the rollout bench's keys (and no ``vs_baseline``, a ratio to a TPU
-target), the tabular, learner and train-loop benches' lines (narrow
-networks), and the mode not yet ported."""
+target), the single-step path (``--rollout-k 1``) against a hand loop of
+``fast_step``, the tabular bench on either table, the learner and
+train-loop benches' lines (narrow networks), ``--scale`` on gloo ranks, and
+what the subcommand refuses."""
 
 import functools
 import json
 
 import pytest
+import torch
 
 from tpu2048_torch import bench
 from tpu2048_torch.agents.dqn import DQNConfig
 from tpu2048_torch.cli import main as cli
 from tpu2048_torch.cli.main import main
+from tpu2048_torch.env.fast import GeneratorBits, fast_reset, fast_step
 
 
 def test_bench_prints_one_json_line(capsys):
@@ -28,6 +32,73 @@ def test_bench_prints_one_json_line(capsys):
     assert row["env_steps_per_s"] > 0
 
 
+def single_step_totals(batch, steps):
+    """The summed reward and dones of the single-step bench's timed run,
+    from a hand loop of ``fast_step`` on its bits: the reset, ``steps``
+    warm steps, then ``steps`` timed ones."""
+    bits = GeneratorBits(0, torch.device("cpu"))
+    state = fast_reset(bits, batch, bench.ROLLOUT_ENV)
+    for _ in range(2):
+        reward = torch.zeros((), dtype=torch.float32)
+        dones = 0
+        for _ in range(steps):
+            state, ts = fast_step(bench.ROLLOUT_ENV, state, bits)
+            reward += ts.reward.sum(dtype=torch.float32)
+            dones += int(ts.done.sum())
+    return float(reward), dones
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_bench_rollout_k(k, capsys):
+    """``--rollout-k 1`` steps through ``fast_step`` on generator bits and
+    sums what a hand loop sums; any other K is the rollout path's row."""
+    argv = ["bench", "--cpu", "--batch", "64", "--steps", "32"]
+    assert main([*argv, "--rollout-k", str(k)]) == 0
+    row = json.loads(capsys.readouterr().out)
+    assert (row["batch"], row["steps"], row["rollout_k"]) == (64, 32, k)
+    assert row["windows"] == 32 // k and row["launches"] == 0
+    if k == 1:
+        assert row["bits"] == "generator"
+        assert (row["reward"], row["episodes"]) == single_step_totals(64, 32)
+        assert row["episodes"] > 0
+        return
+    want = bench.main(batch=64, steps=32, rollout_k=k, device="cpu")
+    capsys.readouterr()
+    timed = {"env_steps_per_s", "seconds"}
+    assert {key: v for key, v in row.items() if key not in timed} == {
+        key: v for key, v in want.items() if key not in timed}
+    assert row["bits"] == "philox" and "reward" not in row
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--rollout-k", "3"], "not a whole number"),
+    (["--rollout-k", "0"], "not a whole number"),
+    (["--tabular", "--table-backend", "xla"], "names a JAX backend"),
+    (["--tabular", "--table-backend", "interpret"], "names a JAX backend"),
+])
+def test_bench_refusals(flags, message, capsys):
+    assert main(["bench", "--cpu", "--steps", "32", *flags]) == 2
+    captured = capsys.readouterr()
+    assert message in captured.err and captured.out == ""
+
+
+@pytest.mark.parametrize("backend, resolved", [
+    ("legacy", "legacy"), ("pallas", "packed")])
+def test_tabular_bench_table_backend(backend, resolved, monkeypatch,
+                                     capsys):
+    """``bench --tabular --table-backend`` runs the trainer's table and
+    names the one that ran."""
+    monkeypatch.setattr(bench, "TABULAR_CAPACITY_LOG2", 10)
+    monkeypatch.setattr(bench, "TABULAR_STEPS_PER_CHUNK", 8)
+    monkeypatch.setattr(bench, "TABULAR_TIMED_CHUNKS", 2)
+    assert main(["bench", "--cpu", "--tabular", "--batch", "32",
+                 "--table-backend", backend]) == 0
+    row = json.loads(capsys.readouterr().out)
+    assert row["bench"] == "tabular" and row["table_backend"] == resolved
+    assert (row["batch"], row["capacity_log2"]) == (32, 10)
+    assert row["env_steps_per_s"] > 0
+
+
 def test_tabular_bench_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(bench, "TABULAR_CAPACITY_LOG2", 10)
     monkeypatch.setattr(bench, "TABULAR_STEPS_PER_CHUNK", 8)
@@ -35,6 +106,7 @@ def test_tabular_bench_on_the_cpu(monkeypatch, capsys):
     row = bench.tabular_main(batch=32, device="cpu")
     assert json.loads(capsys.readouterr().out) == row
     assert row["bench"] == "tabular" and row["card"] == "cpu"
+    assert row["table_backend"] == "packed"
     assert (row["capacity_log2"], row["steps_per_chunk"], row["chunks"]) == (
         10, 8, 2)
     assert row["env_steps_per_s"] > 0

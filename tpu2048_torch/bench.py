@@ -2,11 +2,16 @@
 (the counterpart of the repository root's ``bench.py``, which measures the
 JAX package).
 
-``main`` times the random-policy env on the rollout kernel: ``steps`` env
-steps of ``batch`` lanes as ``steps / rollout_k`` launches of
+``main`` times the random-policy env: ``steps`` env steps of ``batch``
+lanes as ``steps / rollout_k`` launches of
 :func:`tpu2048_torch.env.fast.fast_rollout`, with the bits drawn by Philox
-inside the kernel. ``tabular_main`` times the tabular training chunk (shaped
-fast env, packed hashed Q-table, the step, gather and scatter kernels).
+inside the kernel; with ``rollout_k`` 1 the single-step path instead, one
+:func:`tpu2048_torch.env.fast.fast_step` (one step-kernel launch, the
+kernel's random-legal policy) a step on bits from
+:class:`~tpu2048_torch.env.fast.GeneratorBits`. ``tabular_main`` times the
+tabular training chunk (shaped fast env and the step kernel, on the packed
+hashed Q-table and its gather and scatter kernels, or with
+``table_backend="legacy"`` the two-array table in plain ops).
 ``learner_main`` times the DQN learner's updates at full width, and
 ``train_loop_main`` the DQN training chunk's actor side (CNN policy, step
 kernel, dedup, replay insert) with no updates. ``scale_main`` times the
@@ -16,8 +21,10 @@ rank count).
 Each warms up with the same work it then times, and fences the timed run by
 synchronizing the device and reading a result on the host. Each line names
 the card and its power limit (``nvidia-smi``), or ``"cpu"``. Run them as
-``python -m tpu2048_torch bench [--tabular | --learner | --train-loop |
---scale 1,2,...] [--cpu]``.
+``python -m tpu2048_torch bench [--rollout-k K | --tabular [--table-backend
+B] | --learner | --train-loop | --scale 1,2,...] [--cpu]``. The env bench's
+defaults are 65536 lanes and 256 steps, where the JAX bench's are 131072
+and 2048.
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ from typing import Optional
 
 import torch
 
-from tpu2048_torch.env.fast import (FastEnvConfig, PhiloxBits, fast_reset,
-                                    fast_rollout)
+from tpu2048_torch.env.fast import (FastEnvConfig, GeneratorBits,
+                                    PhiloxBits, fast_reset, fast_rollout,
+                                    fast_step)
 from tpu2048_torch.ops import step_kernel as sk
 from tpu2048_torch.utils.device import resolve_device
 
@@ -68,23 +76,34 @@ def _sync(device: torch.device) -> None:
 
 def main(batch: int = 65536, steps: int = 256, rollout_k: int = 16,
          device: Optional[str] = None) -> dict:
-    """Random-policy env-steps/s on the rollout kernel; returns the printed
-    row. ``launches`` counts the kernel launches of the timed run (0 on the
-    CPU, where the plain version runs)."""
+    """Random-policy env-steps/s; returns the printed row. ``launches``
+    counts the kernel launches of the timed run (0 on the CPU, where the
+    plain version runs): the rollout kernel's, or with ``rollout_k`` 1 the
+    step kernel's, whose row also gives the timed run's summed ``reward``."""
     device = resolve_device(device)
     if steps % rollout_k:
         raise ValueError(f"steps {steps} not divisible by k {rollout_k}")
     windows = steps // rollout_k
     config = ROLLOUT_ENV
-    bits = PhiloxBits(0, device)
+    if rollout_k == 1:
+        # PhiloxBits would draw each step's rows on the host in eager ops.
+        bits, kernel = GeneratorBits(0, device), sk.fused_env_step
+
+        def window(state):
+            state, ts = fast_step(config, state, bits)
+            return state, ts.reward, ts.done
+    else:
+        bits, kernel = PhiloxBits(0, device), sk.fused_env_rollout
+
+        def window(state):
+            return fast_rollout(config, state, bits, rollout_k)
     state = fast_reset(bits, batch, config)
 
     def run(state):
         reward = torch.zeros((), dtype=torch.float32, device=device)
         dones = torch.zeros((), dtype=torch.int64, device=device)
         for _ in range(windows):
-            state, reward_sum, done_count = fast_rollout(config, state, bits,
-                                                         rollout_k)
+            state, reward_sum, done_count = window(state)
             reward += reward_sum.sum(dtype=torch.float32)
             dones += done_count.sum()
         return state, reward, dones
@@ -92,7 +111,7 @@ def main(batch: int = 65536, steps: int = 256, rollout_k: int = 16,
     state, reward, _ = run(state)
     float(reward)
     _sync(device)
-    before = sk.fused_env_rollout.launches
+    before = kernel.launches
     t0 = time.perf_counter()
     state, reward, dones = run(state)
     float(reward)
@@ -105,20 +124,24 @@ def main(batch: int = 65536, steps: int = 256, rollout_k: int = 16,
         "steps": steps,
         "rollout_k": rollout_k,
         "windows": windows,
-        "launches": sk.fused_env_rollout.launches - before,
+        "launches": kernel.launches - before,
         "bits": "philox",
         "episodes": int(dones),
         "seconds": seconds,
         "card": card_name(device),
     }
+    if rollout_k == 1:
+        row.update(bits="generator", reward=float(reward))
     print(json.dumps(row))
     return row
 
 
-def tabular_main(batch: int = 4096, device: Optional[str] = None) -> dict:
+def tabular_main(batch: int = 4096, device: Optional[str] = None,
+                 table_backend: str = "auto") -> dict:
     """Tabular training env-steps/s and ms a step at the JAX bench's shape:
-    one warm chunk, then ``TABULAR_TIMED_CHUNKS`` timed ones; returns the
-    printed row."""
+    one warm chunk, then ``TABULAR_TIMED_CHUNKS`` timed ones, on the table
+    of ``table_backend`` (``auto``/``pallas`` packed, ``legacy``; any other
+    name raises ValueError); returns the printed row."""
     from tpu2048_torch.agents.tabular import TabularConfig
     from tpu2048_torch.training import tabular as ttrain
 
@@ -129,7 +152,9 @@ def tabular_main(batch: int = 4096, device: Optional[str] = None) -> dict:
         agent=TabularConfig(capacity_log2=capacity_log2, total_epochs=100),
         batch_size=batch,
         steps_per_chunk=steps_per_chunk,
+        table_backend=table_backend,
     )
+    backend = ttrain.resolve_table_backend(config)
     bits, draws = ttrain.sources(0, device)
     state = ttrain.init_train_state(config, bits)
     state, _ = ttrain.train_chunk(config, state, bits, draws)
@@ -148,6 +173,7 @@ def tabular_main(batch: int = 4096, device: Optional[str] = None) -> dict:
         "ms_per_step": 1e3 * seconds / n_steps,
         "batch": batch,
         "capacity_log2": capacity_log2,
+        "table_backend": backend,
         "steps_per_chunk": steps_per_chunk,
         "chunks": chunks,
         "seconds": seconds,

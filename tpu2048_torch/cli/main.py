@@ -517,10 +517,24 @@ def cmd_bench(args) -> int:
     elif args.train_loop:
         bench.train_loop_main(envs=args.envs, device=device)
     elif args.tabular:
-        bench.tabular_main(batch=args.batch or 4096, device=device)
+        from tpu2048_torch.training.tabular import (TabularTrainConfig,
+                                                    resolve_table_backend)
+
+        try:
+            resolve_table_backend(
+                TabularTrainConfig(table_backend=args.table_backend))
+        except ValueError as e:  # xla and interpret: JAX's backends
+            print(f"--table-backend: {e}", file=sys.stderr)
+            return 2
+        bench.tabular_main(batch=args.batch or 4096, device=device,
+                           table_backend=args.table_backend)
+    elif args.rollout_k < 1 or args.steps % args.rollout_k:
+        print(f"--steps {args.steps} is not a whole number of "
+              f"--rollout-k {args.rollout_k} windows", file=sys.stderr)
+        return 2
     else:
         bench.main(batch=args.batch or 65536, steps=args.steps,
-                   device=device)
+                   rollout_k=args.rollout_k, device=device)
     return 0
 
 
@@ -754,10 +768,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="parallel envs (default 65536; 4096 with "
                          "--tabular)")
     pb.add_argument("--steps", type=int, default=256,
-                    help="env steps of the timed run (16 a launch)")
+                    help="env steps of the timed run (--rollout-k a "
+                         "launch)")
+    pb.add_argument("--rollout-k", type=int, default=16,
+                    help="env steps a rollout-kernel launch (1 = the "
+                         "single-step fast_step path, one step-kernel "
+                         "launch a step)")
     pb.add_argument("--tabular", action="store_true",
                     help="benchmark the tabular training chunk's env "
                          "steps/s (shaped env + hashed Q-table)")
+    pb.add_argument("--table-backend", type=str, default="auto",
+                    choices=["auto", "pallas", "interpret", "xla", "legacy"],
+                    help="--tabular Q-table: auto/pallas = the packed table "
+                         "on the bucket kernels, legacy = the two-array "
+                         "table (xla and interpret are JAX's and exit 2)")
     pb.add_argument("--learner", action="store_true",
                     help="benchmark DQN learner updates/s (full-size CNN) "
                          "instead of env steps/s")
