@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from tpu2048_torch.agents.tabular import _first_true
+from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.models import dqn as dqn_model
 from tpu2048_torch.parallel import mesh
 from tpu2048_torch.parallel.mesh import ShardedSource
@@ -272,20 +273,23 @@ def train_step(config: DQNConfig, state: DQNTrainState, batch,
     Returns ``(loss, td_errors)``: the loss as a () tensor and the
     per-sample |TD| (B,), both without gradient.
     """
-    targets = dqn_targets(config, state.target, batch)
-    model = state.model
-    model.train()
-    q = model(batch["board"], generator=state.generator)
-    q_taken = q.gather(1, batch["action"][:, None])[:, 0]
-    # Only the taken-action cells carry the reference's full-matrix MSE
-    # (tf.reduce_mean(square(targets - q_values)), Dqn8:371-380), so the
-    # value and the gradient are the taken cells' MSE scaled 1/4.
-    loss = ((targets - q_taken) ** 2).mean() / q.shape[-1]
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if grad_reduce is not None:
-        loss = grad_reduce(model.parameters(), loss)
-    state.optimizer.step()
+    with annotate("learner.forward"):
+        targets = dqn_targets(config, state.target, batch)
+        model = state.model
+        model.train()
+        q = model(batch["board"], generator=state.generator)
+        q_taken = q.gather(1, batch["action"][:, None])[:, 0]
+        # Only the taken-action cells carry the reference's full-matrix MSE
+        # (tf.reduce_mean(square(targets - q_values)), Dqn8:371-380), so
+        # the value and the gradient are the taken cells' MSE scaled 1/4.
+        loss = ((targets - q_taken) ** 2).mean() / q.shape[-1]
+    with annotate("learner.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with annotate("learner.optimizer"):
+        if grad_reduce is not None:
+            loss = grad_reduce(model.parameters(), loss)
+        state.optimizer.step()
     state.train_steps += 1
     return loss.detach(), (targets - q_taken.detach()).abs()
 

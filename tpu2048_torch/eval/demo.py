@@ -11,7 +11,9 @@ A :class:`GameSession` is one board of the classic env
 (:mod:`tpu2048_torch.env.env`, no auto-reset) on a device: the card unless
 the caller names the CPU. Each move copies what the HUD needs (the board,
 the score, whether the game goes on, the action) to the host in one
-transfer.
+transfer. A policy move's parts are the profiler spans ``play.policy``,
+``play.env_step`` and ``play.read`` (:func:`tpu2048_torch.metrics.
+profiling.annotate`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env.env import SIMPLE, EnvConfig
+from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.utils.device import resolve_device
 
@@ -150,12 +153,15 @@ class GameSession:
 
     def step_auto(self) -> int:
         """One policy move (random and model modes); returns the action."""
-        actions = self._policy(self.state.board, self._legal)
-        self.state, ts = envlib.step(self.config, self.state, actions,
-                                     self.source)
+        with annotate("play.policy"):
+            actions = self._policy(self.state.board, self._legal)
+        with annotate("play.env_step"):
+            self.state, ts = envlib.step(self.config, self.state, actions,
+                                         self.source)
         self.moves += 1
         self._legal = ts.legal_mask
-        self._read(ts.legal_mask[0].any(), ts.done[0], actions)
+        with annotate("play.read"):
+            self._read(ts.legal_mask[0].any(), ts.done[0], actions)
         return self.last_action
 
     def board_values(self) -> np.ndarray:

@@ -6,7 +6,9 @@ finished boards, so each lane's FIRST completion is latched and its free
 restarts are left out of the action counts; the random-legal policy runs
 inside the rollout kernel, 16 steps a launch with the latches in registers.
 The lax engine plays the classic env (:mod:`tpu2048_torch.env.env`) without
-auto-reset, as plain ops: shaped and quirk envs run there.
+auto-reset, as plain ops: shaped and quirk envs run there. A policy's
+step on the fast engine enters the profiler spans ``eval.policy`` and
+``eval.env_step`` (:func:`tpu2048_torch.metrics.profiling.annotate`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from tpu2048_torch.agents.tabular import QTable
 from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import EnvConfig
+from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops.step_kernel import from_cell_major
 
@@ -286,11 +289,15 @@ def _evaluate_fast(policy: Policy, num_games, bits, env_config, batch_size,
         act_counts = torch.zeros(4, dtype=torch.int64, device=device)
         for _ in range(max_steps // STEPS_PER_CALL + 1):
             for _ in range(STEPS_PER_CALL):
-                actions = policy(from_cell_major(state.boards), state.legal)
+                with annotate("eval.policy"):
+                    actions = policy(from_cell_major(state.boards),
+                                     state.legal)
                 live = (actions.unsqueeze(-1) == actions_range) & ~done[:, None]
                 act_counts += live.sum(0)
-                new_state, ts = fastlib.fast_step(fcfg, state, bits, actions,
-                                                  need_legal=True)
+                with annotate("eval.env_step"):
+                    new_state, ts = fastlib.fast_step(fcfg, state, bits,
+                                                      actions,
+                                                      need_legal=True)
                 newly = ts.done & ~done
                 final_score = torch.where(newly, state.score + ts.merge_score,
                                           final_score)

@@ -3,9 +3,11 @@
 * :func:`trace`: a context manager around ``torch.profiler.profile`` (host
   and CUDA activity) that writes a Chrome trace into ``logdir`` and yields
   the profile, whose ``key_averages()`` and ``events()`` give the kernels.
-* :func:`annotate`: ``torch.profiler.record_function``, a named host span
-  (the DQN trainer names its ``actor``, ``env_step``, ``replay_add`` and
-  ``learner`` scopes so).
+* :func:`annotate`: the port's one span helper, a named host span on the
+  profiler's timeline (``torch.profiler.record_function``) while a profiler
+  is active, and a shared null context, which costs next to nothing,
+  while none is. The trainers, the eval loop and the game session name
+  their layers with it, a span a step, an update or a move.
 * :func:`time_fn`: seconds a call, with the device synchronised before the
   first timed call and after the last, after warm-up calls.
 """
@@ -18,6 +20,7 @@ import time
 from typing import Callable, Iterator
 
 import torch
+from torch._C._autograd import _profiler_enabled
 from torch.profiler import ProfilerActivity, profile, record_function
 
 
@@ -34,8 +37,17 @@ def trace(logdir: str) -> Iterator[profile]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str) -> record_function:
-    return record_function(name)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str) -> contextlib.AbstractContextManager:
+    """A span named ``name``: ``record_function(name)`` while a profiler
+    records, else one shared ``nullcontext``: a ``record_function``
+    costs host time on entry and exit even where no profiler records it,
+    and the hot loops enter their spans every step."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 def _fence() -> None:

@@ -50,6 +50,13 @@ per-step debug CSV (mainDQL:22-25, 234) to a list on the device; the host
 reads the chunk's rows once, after the chunk, and hands each to
 ``trace_fn``. With ``watchdog_timeout`` a watchdog exits the process with
 code 70 when no chunk (or checkpoint) ends in that many seconds.
+
+A vector step's parts are profiler spans (:func:`tpu2048_torch.metrics.
+profiling.annotate`, free with no profiler active): ``actor``,
+``env_step``, ``replay_add`` and ``learner``; inside ``learner``, each
+update's ``learner.sample`` and :func:`~tpu2048_torch.agents.dqn.
+train_step`'s ``learner.forward``, ``learner.backward`` and
+``learner.optimizer``.
 """
 
 from __future__ import annotations
@@ -62,13 +69,13 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tpu2048_torch.agents import dqn as dqnlib
 from tpu2048_torch.agents.tabular import one_hot
 from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SIMPLE, EnvConfig
+from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.models import dqn as dqn_model
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops.step_kernel import from_cell_major
@@ -583,7 +590,7 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
     the device)."""
     acfg = config.agent
     b = st.layout.num_envs
-    with record_function("actor"):
+    with annotate("actor"):
         if fcfg is None:
             boards = st.env_state.board
             legal = board_ops.legal_moves_mask(boards)
@@ -594,7 +601,7 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
         actions = dqnlib.select_actions(
             st.agent.model, boards, legal, ~st.dedup.last_saved,
             eps, st.draws.select(b))
-    with record_function("env_step"):
+    with annotate("env_step"):
         if fcfg is None:
             env_state, ts = envlib.step(config.env, st.env_state, actions,
                                         st.bits)
@@ -604,7 +611,7 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
                                               actions, need_obs=True,
                                               need_legal=True)
             next_boards = from_cell_major(ts.obs)
-    with record_function("replay_add"):
+    with annotate("replay_add"):
         save, st.dedup = dqnlib.dedup_mask(st.dedup, boards, next_boards,
                                            ts.done, acfg.dedup)
         sharded.sharded_add(st.buffer, boards, actions, ts.reward, ts.done,
@@ -644,11 +651,12 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
     grad_reduce = (None if data_group is None else functools.partial(
         mesh.average_gradients, group=data_group))
     loss_sum = torch.zeros((), dtype=torch.float32, device=st.device)
-    with record_function("learner"):
+    with annotate("learner"):
         for _ in range(n_upd):
-            indices = st.draws.indices(st.buffer, batch_size, acfg.alpha)
-            batch, indices, _ = sharded.sharded_sample(
-                st.buffer, batch_size, acfg.alpha, acfg.beta, indices)
+            with annotate("learner.sample"):
+                indices = st.draws.indices(st.buffer, batch_size, acfg.alpha)
+                batch, indices, _ = sharded.sharded_sample(
+                    st.buffer, batch_size, acfg.alpha, acfg.beta, indices)
             loss, td = dqnlib.train_step(acfg, st.agent, batch, grad_reduce)
             if acfg.alpha != 0.0:
                 # |TD| -> priorities (Dqn8:389-390); at alpha=0 they are

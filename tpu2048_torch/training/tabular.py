@@ -17,6 +17,11 @@ it never waits for the device: the running sums stay on the device and the
 host reads them once a chunk. The legacy update reads the number of its
 ordered rounds once a step. With ``watchdog_timeout`` a watchdog exits the
 process with code 70 when no chunk ends in that many seconds.
+
+A step's four parts are profiler spans (:func:`tpu2048_torch.metrics.
+profiling.annotate`, free with no profiler active): ``tabular.act`` (epsilon
+and the choice), ``tabular.env_step``, ``tabular.learn`` (targets and the
+table's update) and ``tabular.record`` (the running sums).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from tpu2048_torch.agents import tabular_fast as tabf
 from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SHAPED, EnvConfig
+from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.ops.step_kernel import from_cell_major
 from tpu2048_torch.utils.watchdog import STARTUP_FLOOR, Watchdog
 
@@ -147,50 +153,59 @@ def train_chunk(config: TabularTrainConfig, state: TabularTrainState, bits,
     st = state
     eps = None
     for _ in range(config.steps_per_chunk):
-        epoch = st.episodes_done.to(torch.float32) / b
-        eps = tab.epsilon_for_epoch(epoch, agent_cfg)
-        if lax:
-            boards = st.env_state.board
-        else:
-            boards = from_cell_major(st.env_state.boards)
-        if legacy:
-            actions, probe = tab.choose_actions_probed(st.table, boards, eps,
-                                                       draws)
-        else:
-            actions, probe = tabf.fast_choose_actions_probed(
-                st.table, boards, eps, draws)
-        if lax:
-            env_state, ts = envlib.step(config.env, st.env_state, actions,
-                                        bits)
-            next_boards = ts.obs
-        else:
-            env_state, ts = fastlib.fast_step(fcfg, st.env_state, bits,
-                                              actions, need_obs=True)
-            next_boards = from_cell_major(ts.obs)
-        if legacy:
-            targets = tab.q_learning_targets(st.table, ts.reward, next_boards,
-                                             ts.done, agent_cfg.discount)
-            table = tab.qtable_update(st.table, boards, actions, targets,
-                                      agent_cfg.learning_rate, probe=probe)
-        else:
-            targets = tabf.fast_targets(st.table, ts.reward, next_boards,
-                                        ts.done, agent_cfg.discount)
-            table = tabf.fast_update(st.table, probe, actions, targets,
-                                     agent_cfg.learning_rate)
-        done_f = ts.done.to(torch.float32)
-        st = TabularTrainState(
-            table=table,
-            env_state=env_state,
-            episodes_done=st.episodes_done + ts.done.sum(dtype=torch.int32),
-            env_steps=st.env_steps + b,
-            sum_return=st.sum_return + (ts.episode_return * done_f).sum(),
-            sum_score=st.sum_score + torch.where(
-                ts.done, _episode_score(st, ts), 0.0).sum(),
-            sum_length=st.sum_length + (ts.episode_steps * done_f).sum(),
-            best_tile=torch.maximum(st.best_tile, ts.max_number.amax()),
-            action_counts=st.action_counts + tab.one_hot(
-                actions, 4, torch.int32).sum(0, dtype=torch.int32),
-        )
+        with annotate("tabular.act"):
+            epoch = st.episodes_done.to(torch.float32) / b
+            eps = tab.epsilon_for_epoch(epoch, agent_cfg)
+            if lax:
+                boards = st.env_state.board
+            else:
+                boards = from_cell_major(st.env_state.boards)
+            if legacy:
+                actions, probe = tab.choose_actions_probed(
+                    st.table, boards, eps, draws)
+            else:
+                actions, probe = tabf.fast_choose_actions_probed(
+                    st.table, boards, eps, draws)
+        with annotate("tabular.env_step"):
+            if lax:
+                env_state, ts = envlib.step(config.env, st.env_state,
+                                            actions, bits)
+                next_boards = ts.obs
+            else:
+                env_state, ts = fastlib.fast_step(fcfg, st.env_state, bits,
+                                                  actions, need_obs=True)
+                next_boards = from_cell_major(ts.obs)
+        with annotate("tabular.learn"):
+            if legacy:
+                targets = tab.q_learning_targets(
+                    st.table, ts.reward, next_boards, ts.done,
+                    agent_cfg.discount)
+                table = tab.qtable_update(st.table, boards, actions, targets,
+                                          agent_cfg.learning_rate,
+                                          probe=probe)
+            else:
+                targets = tabf.fast_targets(st.table, ts.reward, next_boards,
+                                            ts.done, agent_cfg.discount)
+                table = tabf.fast_update(st.table, probe, actions, targets,
+                                         agent_cfg.learning_rate)
+        with annotate("tabular.record"):
+            done_f = ts.done.to(torch.float32)
+            st = TabularTrainState(
+                table=table,
+                env_state=env_state,
+                episodes_done=st.episodes_done + ts.done.sum(
+                    dtype=torch.int32),
+                env_steps=st.env_steps + b,
+                sum_return=st.sum_return + (ts.episode_return
+                                            * done_f).sum(),
+                sum_score=st.sum_score + torch.where(
+                    ts.done, _episode_score(st, ts), 0.0).sum(),
+                sum_length=st.sum_length + (ts.episode_steps
+                                            * done_f).sum(),
+                best_tile=torch.maximum(st.best_tile, ts.max_number.amax()),
+                action_counts=st.action_counts + tab.one_hot(
+                    actions, 4, torch.int32).sum(0, dtype=torch.int32),
+            )
     return st, eps
 
 
