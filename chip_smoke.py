@@ -11,7 +11,8 @@ it exits non-zero and prints no result. ``python3 chip_smoke.py
 at ``ROOT`` (for example an unpacked parent commit), and ``python3
 chip_smoke.py --step-timing ROOT`` only phase 5 on its step kernel and
 phase 12's rows and host split on its rollout kernel, so that two versions
-can be timed in one run on one card.
+can be timed in one run on one card. ``python3 chip_smoke.py --ntuple``
+runs phases 1, 2 and 21 alone.
 
 1. The card's name, power limit and maximum SM clock, the torch and CUDA
    versions, and the 32-bit integer peak that the bounds use.
@@ -205,10 +206,28 @@ can be timed in one run on one card.
     ``model_parallel`` 1 (its Q-values against the ranks' and one chunk).
     Gloo ranks that share one card check correctness; they do not measure
     tensor-parallel speed (every collective goes through the host).
+21. The n-tuple network (``ops/ntuple_kernel.py``) at the path's shapes:
+    the 4x6-tuple set, 8,192 lanes, random weights over the whole 256 MiB.
+    The afterstate kernel against ``plain_afterstate_values`` on the same
+    card tensors: afterstates, rewards and legality equal; values,
+    ``v_prev`` and targets within ``NT_RTOL`` of max(1, |plain|); actions
+    equal but where the plain version's two best moves lie within that
+    tolerance, and the chosen afterstates those of the kernel's actions.
+    The TD-update kernel against ``plain_td_update_`` on copies of the
+    same weights: every weight within ``NT_RTOL``, the counts zero after.
+    Both timed (eager by CUDA events, device only from a CUDA graph, one
+    plain call) beside their bound, the useful bytes at the HBM rate
+    (``benchmark/counts/ntuple_bytes.py``). Then ``train ntuple`` through
+    ``tpu2048_torch.cli.main`` at 8,192 lanes, 128 steps a chunk, every
+    count set to 0 just before: one afterstate launch, three update
+    launches and one step kernel a step, every step after the first a
+    replay of one captured step; and ``eval --policy ntuple`` on the saved
+    weights, one afterstate launch and one step kernel a batched step.
 
-Then one JSON line describing the four kernels (the step kernel's launches
-counted over phases 4, 11, 13, 16, 17, 19 and 20, the table kernels' over
-phases 7, 11 and 18), and the result line.
+Then one JSON line describing the six kernels (the step kernel's launches
+counted over phases 4, 11, 13, 16, 17, 19, 20 and 21, the table kernels'
+over phases 7, 11 and 18, the n-tuple kernels' over phase 21), and the
+result line.
 
 Phase 13's ``train dqn`` also writes env 0's ``--debug-csv`` (the
 reference's header, one row a vector step) under ``--watchdog``, and
@@ -337,6 +356,14 @@ FUSED_ENDGAME_LANES = 4
 DQN_NARROW_PARAM_ATOL = 1e-5
 DQN_NARROW_LOOSE_SHARE = 1e-3
 DQN_NARROW_LOSS_RTOL = 1e-4
+# The n-tuple phase (21): `train ntuple`'s lanes and chunk; its games, cut
+# to a few chunks; the greedy eval's games on the trained weights. Card
+# against plain on the same inputs: each value is a sum of 32 weights in
+# another order (the kernel's quads and batches, torch's reduction), so it
+# agrees to float32 rounding, 2.4e-6 of max(1, |V|) at unit-normal
+# weights; a lookup left out or misread moves it by a weight, ~1.
+NT_LANES, NT_CHUNK, NT_EPISODES, NT_EVAL_GAMES = 8192, 128, 16384, 2048
+NT_RTOL = 1e-5
 # Card against CPU, narrow trainer: the shaped reward's log2 and pow may
 # round one float32 ulp apart on the two devices, and the TD updates carry
 # that on (the CPU tests hold the port to JAX at the same tolerance).
@@ -3631,6 +3658,229 @@ def phase_tensor_parallel(torch, device):
     return launches
 
 
+def nt_gap(torch, got, want):
+    """The largest |got - want| / max(1, |want|)."""
+    return float(((got - want).abs() / want.abs().clamp_min(1)).max())
+
+
+def nt_boards(torch, gen, b, device, empty_below):
+    """``(16, b)`` cell-major boards of exponents 0-12, those below
+    ``empty_below`` emptied, so that most lanes have a legal move."""
+    from tpu2048_torch.ops.step_kernel import to_cell_major
+
+    e = torch.randint(0, 13, (b, 16), generator=gen, device=device)
+    e[e < empty_below] = 0
+    return to_cell_major(e.to(torch.int8).view(b, 4, 4))
+
+
+def ntuple_equal(nk, net, torch, device):
+    """Phase 21's checks of both kernels against their plain versions;
+    returns the inputs, the plain outputs and the largest gaps."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    net.weights.normal_(generator=gen)
+    b = NT_LANES
+    boards = nt_boards(torch, gen, b, device, 4)
+    prev = nt_boards(torch, gen, b, device, 5)
+    valid = torch.rand(b, generator=gen, device=device) < 0.9
+    terminal = torch.rand(b, generator=gen, device=device) < 0.1
+    args = (boards, prev, valid, terminal, net.weights, net.maps)
+    got = nk.afterstate_values(*args)
+    want = nk.plain_afterstate_values(*args)
+    for name in ("after", "reward", "legal"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            fail(f"afterstate kernel: {name} != plain at B={b}")
+    legal = want.legal
+    if not torch.equal(torch.isfinite(got.values), legal):
+        fail("afterstate kernel: -inf where a move is legal, or a value "
+             "where it is not")
+    value_gap = max(nt_gap(torch, got.values[legal], want.values[legal]),
+                    nt_gap(torch, got.v_prev, want.v_prev),
+                    nt_gap(torch, got.target, want.target))
+    if value_gap > NT_RTOL:
+        fail(f"afterstate kernel: values {value_gap:.3g} from plain, over "
+             f"{NT_RTOL}")
+    q = torch.where(legal, want.reward.to(torch.float32) + want.values,
+                    -torch.inf)
+    top = q.topk(2, 0).values
+    near = (top[0] - top[1]) <= 2 * NT_RTOL * top[0].abs().clamp_min(1)
+    differ = got.action != want.action
+    if bool((differ & ~near).any()):
+        fail(f"afterstate kernel: {int((differ & ~near).sum())} actions "
+             "differ where the two best moves are apart")
+    lanes = torch.arange(b, device=device)
+    chosen = want.after[got.action.long(), :, lanes].T
+    if not torch.equal(got.chosen, chosen):
+        fail("afterstate kernel: the chosen afterstates are not those of "
+             "its actions")
+    kernel_w, plain_w = net.weights.clone(), net.weights.clone()
+    nk.td_update_(kernel_w, net.counts, net.maps, prev, valid, want.v_prev,
+                  want.target, 0.1)
+    nk.plain_td_update_(plain_w, net.maps, prev, valid, want.v_prev,
+                        want.target, 0.1)
+    lut_gap = nt_gap(torch, kernel_w, plain_w)
+    written = [int((w != net.weights).sum()) for w in (kernel_w, plain_w)]
+    if lut_gap > NT_RTOL or net.counts.count_nonzero():
+        fail(f"TD-update kernel: weights {lut_gap:.3g} from plain (limit "
+             f"{NT_RTOL}), {int(net.counts.count_nonzero())} counts left")
+    print(f"phase 21: n-tuple kernels at B={b}, 4x6 set, unit-normal "
+          f"weights: afterstates, rewards, legality equal; values "
+          f"{value_gap:.3g} of max(1, |V|) from plain; {int(differ.sum())} "
+          f"actions differ, all near ties ({int(near.sum())} lanes within "
+          f"{2 * NT_RTOL:g}); update {lut_gap:.3g} from plain, weights "
+          f"written {written[0]} (kernel), {written[1]} (plain); counts "
+          "zero after")
+    return args, want, value_gap, lut_gap
+
+
+def ntuple_timing(nk, net, torch, args, want):
+    """Both kernels at phase 21's inputs: eager, device only, plain, and
+    the bound; returns a row each."""
+    from benchmark.counts import ntuple_bytes as nb
+
+    boards, prev, valid, terminal, weights, maps = args
+    b, lookups = boards.shape[1], maps.shape[0]
+    legal, n_prev = int(want.legal.sum()), int(valid.sum())
+    scratch = weights.clone()
+    calls = {
+        "afterstate_kernel": (
+            lambda: nk.afterstate_values(*args),
+            lambda: nk.plain_afterstate_values(*args),
+            nb.value_bytes(b, legal, n_prev, lookups)),
+        "td_update_kernel": (
+            lambda: nk.td_update_(scratch, net.counts, maps, prev, valid,
+                                  want.v_prev, want.target, 0.1),
+            lambda: nk.plain_td_update_(scratch, maps, prev, valid,
+                                        want.v_prev, want.target, 0.1),
+            nb.update_bytes(b, n_prev, lookups)),
+    }
+    rows = {}
+    for name, (fn, plain, n_bytes) in calls.items():
+        ms = elapsed_ms(torch, fn, 50)
+        dev = graph_ms(torch, fn, 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = dict(ms=ms, graph_ms=dev, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by="bytes")
+        print(f"phase 21: {name} at B={b}: {ms:.5f} ms eager, {dev:.5f} ms "
+              f"device (graph), plain {plain_ms:.3f} ms; bound "
+              f"{bound:.3g} ms ({n_bytes} useful bytes at the HBM rate, "
+              f"{100 * bound / dev:.2f}% of it)")
+    return rows
+
+
+def ntuple_counts(sk, nk, torch):
+    torch.cuda.synchronize()
+    return {"value": nk.afterstate_values.launches,
+            "update": nk.td_update_.launches,
+            "step": sk.fused_env_step.launches}
+
+
+def ntuple_path(sk, nk, torch):
+    """``train ntuple`` and ``eval --policy ntuple`` through the CLI;
+    returns each kernel's launches over both."""
+    from tpu2048_torch.cli.main import main as cli_main
+    from tpu2048_torch.metrics.logging import read_jsonl
+    from tpu2048_torch.training import ntuple as ntrain
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights, log = f"{tmp}/nt.npz", f"{tmp}/nt.jsonl"
+        for fn in (nk.afterstate_values, nk.td_update_, sk.fused_env_step):
+            fn.launches = 0
+        chunk = ntrain.train_chunk
+        modes = ("eager_steps", "graph_steps", "captures")
+        before = [getattr(chunk, m) for m in modes]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["train", "ntuple", "--lanes", str(NT_LANES),
+                           "--steps-per-chunk", str(NT_CHUNK),
+                           "--episodes", str(NT_EPISODES),
+                           "--seed", str(SEED), "--save", weights,
+                           "--log", log])
+        train = ntuple_counts(sk, nk, torch)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"train ntuple returned {rc}")
+        rows = read_jsonl(log)
+        steps = rows[-1]["env_steps"] // NT_LANES
+        graph = {m: getattr(chunk, m) - n for m, n in zip(modes, before)}
+        if train != {"value": steps, "update": 3 * steps, "step": steps}:
+            fail(f"train ntuple: launches {train} in {steps} steps")
+        if graph != {"eager_steps": 1, "graph_steps": steps - 1,
+                     "captures": 1}:
+            fail(f"train ntuple: {graph} in {steps} steps")
+        print(f"phase 21: train ntuple, {NT_LANES} lanes, {NT_CHUNK} steps "
+              f"a chunk: {rows[-1]['episodes']} games in {steps} steps, "
+              f"{len(rows)} chunks, {wall:.2f} s with the build and the "
+              f"capture; launches {train}; {graph}; last chunk "
+              f"{rows[-1]['steps_per_s']:.4g} env-steps/s, mean score "
+              f"{rows[-1]['mean_score']:.1f}, best tile "
+              f"{rows[-1]['best_tile']}")
+        for fn in (nk.afterstate_values, nk.td_update_, sk.fused_env_step):
+            fn.launches = 0
+        rc, summary = run_cli(cli_main, [
+            "eval", "--policy", "ntuple", "--weights", weights,
+            "--games", str(NT_EVAL_GAMES), "--eval-batch",
+            str(NT_EVAL_GAMES), "--seed", str(SEED)])
+        evals = ntuple_counts(sk, nk, torch)
+        if rc != 0:
+            fail(f"eval --policy ntuple returned {rc}")
+        n = summary["batch_steps"]
+        if evals != {"value": n, "update": 0, "step": n}:
+            fail(f"eval --policy ntuple: launches {evals} in {n} steps")
+        print(f"phase 21: eval --policy ntuple, {summary['games']} games: "
+              f"mean score {summary['score_mean']:.1f}, 2048 in "
+              f"{100 * summary['win_rate_2048']:.1f}%, launches {evals} in "
+              f"{n} batched steps, {summary['seconds']:.2f} s")
+    return {k: train[k] + evals[k] for k in train}
+
+
+def phase_ntuple(sk, torch, device):
+    """Phase 21; returns the launches and a kernels-line entry each."""
+    from tpu2048_torch.models.ntuple import NTupleNetwork
+    from tpu2048_torch.ops import ntuple_kernel as nk
+
+    t0 = time.perf_counter()
+    nk.LIBRARY.load()
+    print(f"phase 21: n-tuple kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in nk.LIBRARY.path().with_suffix(".log").read_text() \
+            .splitlines():
+        print(f"phase 21: nvcc, n-tuple kernels: {line.strip()}")
+    net = NTupleNetwork(device=device)
+    args, want, value_gap, lut_gap = ntuple_equal(nk, net, torch, device)
+    rows = ntuple_timing(nk, net, torch, args, want)
+    del net, args, want
+    torch.cuda.synchronize()
+    launches = ntuple_path(sk, nk, torch)
+    entries = [
+        dict(name=name, route="cuda",
+             source="tpu2048_torch/csrc/ntuple_kernel.cu", replaces=None,
+             launches=launches[key], max_rel_err=err, **rows[name],
+             library_ms=None, library_graph_ms=None)
+        for name, key, err in (("afterstate_kernel", "value", value_gap),
+                               ("td_update_kernel", "update", lut_gap))]
+    return launches["step"], entries
+
+
+def ntuple_only(torch):
+    """Phases 1, 2 (the n-tuple source) and 21 alone."""
+    sys.path.insert(0, str(REPO))
+    from tpu2048_torch.ops import step_kernel as sk
+
+    device = torch.device("cuda", 0)
+    print(f"phase 1: card: {card_line()}")
+    print(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    sk.LIBRARY.load()
+    _, entries = phase_ntuple(sk, torch, device)
+    print(json.dumps({"kernels": entries}))
+
+
 def main():
     try:
         import torch
@@ -3638,9 +3888,16 @@ def main():
         fail(f"torch is not installed: {e}")
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    usage = "usage: chip_smoke.py [--table-timing ROOT | --step-timing ROOT]"
+    usage = ("usage: chip_smoke.py [--table-timing ROOT | --step-timing "
+             "ROOT | --ntuple]")
     timing = {"--table-timing": table_timing_only,
               "--step-timing": step_timing_only}
+    if sys.argv[1:] == ["--ntuple"]:
+        ntuple_only(torch)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:2] and sys.argv[1] in timing:
         if len(sys.argv) != 3:
             fail(usage)
@@ -3701,6 +3958,7 @@ def main():
     parallel_launches = phase_parallel(sk, tk, torch, device, dqn_rows,
                                        loop_row)
     tensor_launches = phase_tensor_parallel(torch, device)
+    ntuple_launches, ntuple_entries = phase_ntuple(sk, torch, device)
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -3723,7 +3981,7 @@ def main():
             "replaces": "tpu2048/ops/pallas_step.py:308",
             "launches": launches + path_launches["step"] + dqn_launches
             + fused_launches + legacy_launches + parallel_launches
-            + tensor_launches,
+            + tensor_launches + ntuple_launches,
             "max_abs_err": max_err,
             "ms": main_row["ms"],
             "graph_ms": main_row["graph_ms"],
@@ -3756,6 +4014,7 @@ def main():
             "library_ms": None,
             "library_graph_ms": None,
         },
+        *ntuple_entries,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -186,6 +186,25 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_train_ntuple(args) -> int:
+    from tpu2048_torch.agents.ntuple import NTupleConfig
+    from tpu2048_torch.metrics.logging import JSONLLogger
+    from tpu2048_torch.training.ntuple import NTupleTrainConfig, train
+    from tpu2048_torch.utils.device import resolve_device
+
+    config = NTupleTrainConfig(
+        agent=NTupleConfig(alpha=args.alpha), batch_size=args.lanes,
+        steps_per_chunk=args.steps_per_chunk, total_episodes=args.episodes,
+        seed=args.seed)
+    device = resolve_device("cpu" if args.cpu else None)
+    logger = JSONLLogger(args.log)
+    try:
+        train(config, device, log_fn=logger.log, save_path=args.save)
+    finally:
+        logger.close()
+    return 0
+
+
 def _dqn_refusal(args) -> int:
     """Exit 2 for what cannot run: a process group whose flags disagree,
     replay shards that do not follow the data-parallel ranks; and
@@ -385,6 +404,13 @@ def _tabular_policy(args, device):
     return greedy_tabular_policy(load_qtable(args.table, device))
 
 
+def _ntuple_policy(args, device):
+    from tpu2048_torch.eval.evaluate import greedy_ntuple_policy
+    from tpu2048_torch.models.ntuple import NTupleNetwork
+
+    return greedy_ntuple_policy(NTupleNetwork.load(args.weights, device))
+
+
 def cmd_eval(args) -> int:
     if args.policy == "model" and not (args.params or args.checkpoint_dir):
         print("--checkpoint-dir or --params required for --policy model",
@@ -392,6 +418,9 @@ def cmd_eval(args) -> int:
         return 2
     if args.policy == "tabular" and not args.table:
         print("--table required for --policy tabular", file=sys.stderr)
+        return 2
+    if args.policy == "ntuple" and not args.weights:
+        print("--weights required for --policy ntuple", file=sys.stderr)
         return 2
 
     from tpu2048_torch.env.env import EnvConfig, GeneratorSpawns
@@ -402,7 +431,8 @@ def cmd_eval(args) -> int:
 
     device = resolve_device("cpu" if args.cpu else None)
     if args.policy != "random":
-        make = _model_policy if args.policy == "model" else _tabular_policy
+        make = dict(model=_model_policy, tabular=_tabular_policy,
+                    ntuple=_ntuple_policy)[args.policy]
         try:
             # A --checkpoint-dir's config.json gives the engine too, unless
             # --engine is given.
@@ -578,6 +608,22 @@ def _add_tabular_args(p: argparse.ArgumentParser) -> None:
                    help="run on the CPU instead of the card")
 
 
+def _add_ntuple_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--episodes", type=int, default=100_000,
+                   help="games to finish")
+    p.add_argument("--lanes", type=int, default=8192,
+                   help="games played in lockstep")
+    p.add_argument("--steps-per-chunk", type=int, default=128)
+    p.add_argument("--alpha", type=float, default=0.1,
+                   help="TD step size, split over a board's lookups")
+    p.add_argument("--save", type=str, default=None,
+                   help="write the patterns and weights to this .npz")
+    p.add_argument("--log", type=str, default=None, help="JSONL metrics path")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the card")
+
+
 def _add_dqn_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--episodes", type=int, default=2000)
     p.add_argument("--alpha", type=float, default=5e-5,
@@ -705,10 +751,16 @@ def build_parser() -> argparse.ArgumentParser:
                          allow_abbrev=False)
     _add_dqn_args(pdqn)
     pdqn.set_defaults(fn=cmd_train_dqn)
+    pnt = st.add_parser("ntuple", help="4x6-tuple network, TD(0) on "
+                        "afterstates (Szubert & Jaskowski; Yeh et al.)",
+                        allow_abbrev=False)
+    _add_ntuple_args(pnt)
+    pnt.set_defaults(fn=cmd_train_ntuple)
 
     pe = sub.add_parser("eval", help="batched greedy evaluation",
                         allow_abbrev=False)
-    pe.add_argument("--policy", choices=["random", "model", "tabular"],
+    pe.add_argument("--policy",
+                    choices=["random", "model", "tabular", "ntuple"],
                     default="random")
     pe.add_argument("--params", type=str, default=None,
                     help="params .npz of the Q-network (flax names)")
@@ -722,6 +774,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "block_checkpoint) instead of a step")
     pe.add_argument("--table", type=str, default=None,
                     help="Q-table .npz for --policy tabular")
+    pe.add_argument("--weights", type=str, default=None,
+                    help="n-tuple network .npz for --policy ntuple "
+                         "(train ntuple --save)")
     pe.add_argument("--games", type=int, default=512)
     pe.add_argument("--eval-batch", type=int, default=512)
     pe.add_argument("--reward", choices=["simple", "shaped"],

@@ -20,6 +20,7 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from tpu2048_torch.agents import ntuple as ntuple_agent
 from tpu2048_torch.agents import tabular_fast as tabf
 from tpu2048_torch.agents.tabular import QTable
 from tpu2048_torch.env import env as envlib
@@ -123,6 +124,17 @@ def greedy_tabular_policy(table: QTable) -> Policy:
     (``tpu2048.eval.evaluate.greedy_tabular_policy``). The table is packed
     once, on its device, and read by the bucket gather each step."""
     return Policy(fn=_greedy_tabular, params=tabf.pack_qtable(table))
+
+
+def _greedy_ntuple(net, boards, legal_mask):
+    return ntuple_agent.greedy_actions(net, boards)
+
+
+def greedy_ntuple_policy(net) -> Policy:
+    """The n-tuple network's greedy afterstate policy, ``argmax(reward +
+    V(after))`` over the legal moves (:func:`tpu2048_torch.agents.ntuple.
+    greedy_actions`: one afterstate-kernel launch a step on the card)."""
+    return Policy(fn=_greedy_ntuple, params=net)
 
 
 @dataclasses.dataclass

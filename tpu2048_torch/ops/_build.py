@@ -3,7 +3,9 @@
 Each kernel source has a plain C interface. It is compiled with ``nvcc``
 (``sm_90a``) at first use into ``build/`` beside the package, under a name
 that carries the source's hash (an edited source is rebuilt), and loaded with
-``ctypes``. nvcc's output is kept beside the library as ``.log``.
+``ctypes``. nvcc's output is kept beside the library as ``.log``. The
+hash covers the files of ``csrc/`` that the source includes by a quoted
+``#include``, and those they include.
 """
 
 from __future__ import annotations
@@ -11,13 +13,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 PACKAGE = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE.parent / "build"
+LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -46,9 +50,26 @@ class CudaLibrary:
         self._declare = declare
         self._lib: Optional[ctypes.CDLL] = None
 
+    def sources(self) -> List[Path]:
+        """The source and the files it includes by a quoted ``#include``,
+        transitively, each once, in the order they are first named."""
+        out: List[Path] = []
+        todo = [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in out:
+                continue
+            out.append(path)
+            todo.extend(path.parent / name for name in
+                        LOCAL_INCLUDE.findall(path.read_text()))
+        return out
+
     def path(self) -> Path:
-        """The shared object built from the current source."""
-        tag = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        """The shared object built from the current sources."""
+        digest = hashlib.sha256()
+        for path in self.sources():
+            digest.update(path.read_bytes())
+        tag = digest.hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{tag}.so"
 
     def build(self) -> None:

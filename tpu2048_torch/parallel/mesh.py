@@ -41,6 +41,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
@@ -211,11 +212,13 @@ def average_gradients(params: Iterable[torch.nn.Parameter],
     ``group`` (default: every rank) with one ``all_reduce`` of one flat
     bucket, in place; returns the mean loss. With equal batches a rank this
     is the gradient of the global batch's mean loss, JAX's ``psum`` / D. On
-    one rank every value is unchanged, bit for bit."""
+    one rank every value is unchanged, bit for bit. The all-reduce is the
+    profiler span ``learner.allreduce``."""
     grads = [p.grad for p in params]
     bucket = torch.cat([g.reshape(-1) for g in grads]
                        + [loss.detach().reshape(1).to(grads[0].dtype)])
-    dist.all_reduce(bucket, group=group)
+    with annotate("learner.allreduce"):
+        dist.all_reduce(bucket, group=group)
     bucket.div_(dist.get_world_size(group))
     views = torch.split(bucket, [g.numel() for g in grads] + [1])
     for g, v in zip(grads, views):

@@ -17,7 +17,8 @@ table it never waits for the device: the running sums stay on the device
 and the host reads them once a chunk. There, on the card, with the fast
 engine and the production sources of :func:`sources`, a chunk replays one
 step captured in a CUDA graph instead of issuing its ~370 launches a step
-from the host (:class:`_StepGraph`); the arithmetic is the same step's.
+from the host (:mod:`tpu2048_torch.training.graph_step`); the arithmetic
+is the same step's.
 The legacy update reads the number of its ordered rounds once a step. With
 ``watchdog_timeout`` a watchdog exits the process with code 70 when no
 chunk ends in that many seconds.
@@ -45,6 +46,7 @@ from tpu2048_torch.env.env import SHAPED, EnvConfig
 from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.ops import table_kernel as tk
 from tpu2048_torch.ops.step_kernel import from_cell_major, fused_env_step
+from tpu2048_torch.training.graph_step import StepGraphs
 from tpu2048_torch.utils.watchdog import STARTUP_FLOOR, Watchdog
 
 
@@ -238,148 +240,63 @@ def train_chunk(config: TabularTrainConfig, state: TabularTrainState, bits,
     updated in place; every other tensor returned is new.
 
     Where :func:`eager_reason` finds nothing, the steps replay one captured
-    :func:`train_step` (:class:`_StepGraph`); the first such chunk of a
-    table, config and pair of sources runs one step eagerly, captures, and
-    replays the rest. Else every step is a :func:`train_step`. The counts
-    ``train_chunk.eager_steps``, ``.graph_steps`` and ``.captures`` say
-    which ran."""
-    steps, eps = config.steps_per_chunk, None
+    :func:`train_step` (:mod:`tpu2048_torch.training.graph_step`); the
+    first such chunk of a table, config and pair of sources runs one step
+    eagerly, captures, and replays the rest. Else every step is a
+    :func:`train_step`. The counts ``train_chunk.eager_steps``,
+    ``.graph_steps`` and ``.captures`` say which ran."""
     graphed = eager_reason(config, state, bits, draws) is None
-    graph = _StepGraph.find(config, state, bits, draws) if graphed else None
-    if graph is not None:
-        eager = 0
-    elif graphed:
-        # One real step before the capture does the first-call work (the
-        # kernels' builds and loads, their shared-memory opt-in) outside it.
-        eager = min(steps, 1)
-    else:
-        eager = steps
-    for _ in range(eager):
-        state, eps = train_step(config, state, bits, draws)
-    train_chunk.eager_steps += eager
-    if eager == steps:
-        return state, eps
-    if graph is None:
-        graph = _StepGraph.capture(config, state, bits, draws)
-    return graph.run(state, steps - eager)
+
+    def step(pair):
+        return train_step(config, pair[0], bits, draws)
+
+    if not graphed:
+        return _GRAPHS.chunk(config.steps_per_chunk, (state, None), step,
+                             False)
+    data, env_cls = state.table.data, type(state.env_state)
+
+    def rebuild(tensors):
+        env = env_cls(**{f.name: tensors[f.name]
+                         for f in dataclasses.fields(env_cls)})
+        table = tabf.PackedQTable(data=data, dropped=tensors["dropped"])
+        return (TabularTrainState(table=table, env_state=env,
+                                  **{k: tensors[k] for k in _COUNTS}),
+                tensors["eps"])
+
+    return _GRAPHS.chunk(
+        config.steps_per_chunk, (state, None), step, True,
+        # The graph is keyed by what it captured: batch, agent and env
+        # config, the table's storage and the two generators.
+        key=(config.agent, config.env, config.batch_size, env_cls,
+             data.device, data.data_ptr(), tuple(data.shape),
+             id(bits.generator), id(draws.generator)),
+        tensors=_tensors, rebuild=rebuild,
+        generators=(bits.generator, draws.generator), device=data.device)
 
 
 train_chunk.eager_steps = 0
 train_chunk.graph_steps = 0
 train_chunk.captures = 0
 
-# The kernels whose ``.launches`` count a step's launches: a replay adds
-# the launches its capture counted, so that they keep counting on the card.
-_COUNTED = (fused_env_step, tk.bucket_gather, tk.bucket_scatter_)
 _COUNTS = ("episodes_done", "env_steps", "sum_return", "sum_score",
            "sum_length", "best_tile", "action_counts")
+# The kernels whose ``.launches`` count a step's launches.
+_GRAPHS = StepGraphs(train_chunk, (fused_env_step, tk.bucket_gather,
+                                   tk.bucket_scatter_), "tabular.step")
 
 
-def _small_tensors(state: TabularTrainState) -> Dict[str, torch.Tensor]:
-    """Every tensor of the state but the table's data, by name: the env
-    lanes, the running counts and sums, and ``dropped``."""
+def _tensors(pair) -> Dict[str, torch.Tensor]:
+    """Every tensor of a packed-table state but the table's data, by name:
+    the env lanes, the running counts and sums, ``dropped``, and the
+    epsilon where the pair has one."""
+    state, eps = pair
     out = {f.name: getattr(state.env_state, f.name)
            for f in dataclasses.fields(state.env_state)}
     out.update((name, getattr(state, name)) for name in _COUNTS)
     out["dropped"] = state.table.dropped
+    if eps is not None:
+        out["eps"] = eps
     return out
-
-
-def _with_tensors(tensors: Dict[str, torch.Tensor], env_cls,
-                  data: torch.Tensor) -> TabularTrainState:
-    """The state of :func:`_small_tensors`' ``tensors`` on the table
-    ``data``."""
-    env = env_cls(**{f.name: tensors[f.name]
-                     for f in dataclasses.fields(env_cls)})
-    return TabularTrainState(
-        table=tabf.PackedQTable(data=data, dropped=tensors["dropped"]),
-        env_state=env, **{name: tensors[name] for name in _COUNTS})
-
-
-class _StepGraph:
-    """One :func:`train_step` of the fast engine on the packed table,
-    captured in a CUDA graph.
-
-    The graph reads and writes static copies of the state's small tensors
-    (the step's outputs are copied back into them inside the graph), and
-    writes the table's data in place, as the scatter does eagerly: the
-    table is never copied. Both sources' generators are registered with
-    the graph, so a replay draws the bits an eager step would and leaves
-    the generators at the same offsets. The graph is keyed by what it
-    captured: device, batch, agent and env config, the table's storage and
-    the two generators. The module keeps the last one captured, and drops
-    it when a chunk of another key captures."""
-
-    last: Optional["_StepGraph"] = None
-
-    @staticmethod
-    def _key(config, state, bits, draws):
-        data = state.table.data
-        return (config.agent, config.env, config.batch_size,
-                type(state.env_state), data.device, data.data_ptr(),
-                tuple(data.shape), id(bits.generator), id(draws.generator))
-
-    @classmethod
-    def find(cls, config, state, bits, draws) -> Optional["_StepGraph"]:
-        last = cls.last
-        if last is not None and last.key == cls._key(config, state, bits,
-                                                      draws):
-            return last
-        return None
-
-    @classmethod
-    def capture(cls, config, state, bits, draws) -> "_StepGraph":
-        cls.last = None  # free the old graph's memory before capturing
-        cls.last = cls(config, state, bits, draws)
-        train_chunk.captures += 1
-        return cls.last
-
-    def __init__(self, config, state, bits, draws):
-        self.key = self._key(config, state, bits, draws)
-        self.sources = (bits, draws)  # keeps the keyed generators alive
-        self.env_cls = type(state.env_state)
-        data = state.table.data
-        self.static = {k: torch.empty_like(t)
-                       for k, t in _small_tensors(state).items()}
-        self.eps = torch.empty((), dtype=torch.float32, device=data.device)
-        self.handed: Dict[str, tuple] = {}
-        self.graph = torch.cuda.CUDAGraph()
-        before = [fn.launches for fn in _COUNTED]
-        with torch.cuda.device(data.device):
-            for source in self.sources:
-                self.graph.register_generator_state(source.generator)
-            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream()):
-                out, eps = train_step(
-                    config, _with_tensors(self.static, self.env_cls, data),
-                    bits, draws)
-                for k, t in _small_tensors(out).items():
-                    if t is not self.static[k]:
-                        self.static[k].copy_(t)
-                self.eps.copy_(eps)
-        # The capture ran nothing: its counts become each replay's.
-        self.launches = [fn.launches - n for fn, n in zip(_COUNTED, before)]
-        for fn, n in zip(_COUNTED, before):
-            fn.launches = n
-
-    def run(self, state: TabularTrainState, steps: int):
-        """Copy in the tensors of ``state`` that differ from the static
-        ones (those this graph handed out last, unchanged since, do not),
-        replay ``steps`` steps, and hand out copies."""
-        for k, t in _small_tensors(state).items():
-            handed = self.handed.get(k)
-            if (handed is None or handed[0] is not t
-                    or handed[1] != t._version):
-                self.static[k].copy_(t)
-        for _ in range(steps):
-            with annotate("tabular.step"):
-                self.graph.replay()
-        for fn, n in zip(_COUNTED, self.launches):
-            fn.launches += n * steps
-        train_chunk.graph_steps += steps
-        fresh = {k: t.clone() for k, t in self.static.items()}
-        self.handed = {k: (t, t._version) for k, t in fresh.items()}
-        return (_with_tensors(fresh, self.env_cls, state.table.data),
-                self.eps.clone())
 
 
 def sources(seed: int, device, engine: str = "fast"):
