@@ -14,11 +14,15 @@ functions over it:
 * :func:`train_step`: one ``replay`` update (Dqn8:351-400): online forward
   in train mode (dropout from the learner's generator), target forward,
   vanilla-DQN targets, MSE over the taken actions scaled 1/4, one Adam
-  step; returns the loss and the per-sample |TD|.
+  step; returns the loss and the per-sample |TD|. On the card, after one
+  eager update, it captures one whole update in a CUDA graph and replays
+  it for every later update of the train state (:class:`Learner`);
+  :func:`eager_reason` says where it stays eager.
 * :func:`epsilon_value` and :func:`maybe_decay_lr` follow the JAX
   package's float32 arithmetic on the host: the step counter and the update
-  count are host integers, and the learning rate is a float32 value kept in
-  Adam's parameter groups, rounded after each change.
+  count are host integers, and the learning rate is a float32 value, a 0-d
+  tensor on the parameters' device in Adam's parameter groups, written in
+  place after each change so that a captured update reads the new value.
 * :func:`dedup_mask`: ``remember``'s skip rule (Dqn8:280-297) on per-env
   caches of the last two saved transitions.
 
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +83,17 @@ class DQNConfig:
     fused_conv: bool = False  # one 4x4 conv a block (models/dqn.py)
 
 
+class Learner:
+    """How a train state's updates ran: the counts ``eager_updates``,
+    ``graph_updates`` and ``captures``, the last update's ``eager_reason``
+    (None where it captured or replayed), and the last update captured."""
+
+    def __init__(self):
+        self.eager_updates = self.graph_updates = self.captures = 0
+        self.eager_reason: Optional[str] = None
+        self.graph: Optional[_UpdateGraph] = None
+
+
 @dataclasses.dataclass
 class DQNTrainState:
     model: dqn_model.DQNCNN  # online network
@@ -87,6 +102,7 @@ class DQNTrainState:
     step_counter: int  # epsilon decay steps (act calls)
     train_steps: int  # gradient updates taken
     generator: torch.Generator  # the learner's dropout masks
+    learner: Learner = dataclasses.field(default_factory=Learner)
 
 
 def _f32(x) -> float:
@@ -94,13 +110,42 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _lr_tensor(lr, device) -> torch.Tensor:
+    return torch.tensor(_f32(lr), dtype=torch.float32, device=device)
+
+
+def _lr_to_float(optimizer, state_dict: Dict) -> Dict:
+    """A state dict's learning rates as Python floats, as checkpoints hold
+    them."""
+    state_dict["param_groups"] = [dict(g, lr=float(g["lr"]))
+                                  for g in state_dict["param_groups"]]
+    return state_dict
+
+
+def _lr_to_tensor(optimizer) -> None:
+    """After a load (a checkpoint holds a float): each group's learning
+    rate a 0-d float32 tensor on its parameters' device, and capturable."""
+    for group in optimizer.param_groups:
+        group["lr"] = _lr_tensor(float(group["lr"]),
+                                 group["params"][0].device)
+        group["capturable"] = True
+
+
 def make_optimizer(config: DQNConfig, model: torch.nn.Module
                    ) -> torch.optim.Adam:
     """Adam at the config's learning rate (rounded to float32), eps=1e-7:
     the reference compiles keras Adam with defaults (Dqn8:229), whose
-    epsilon is 1e-7. One fused update a step."""
-    return torch.optim.Adam(model.parameters(), lr=_f32(config.learning_rate),
-                            betas=(0.9, 0.999), eps=ADAM_EPS, fused=True)
+    epsilon is 1e-7. One fused update a step, capturable, the learning rate
+    a 0-d tensor on the parameters' device; its state dict holds the rate
+    as a float, and a loaded one (a float or a tensor) becomes the tensor
+    again."""
+    device = next(model.parameters()).device
+    optimizer = torch.optim.Adam(
+        model.parameters(), lr=_lr_tensor(config.learning_rate, device),
+        betas=(0.9, 0.999), eps=ADAM_EPS, fused=True, capturable=True)
+    optimizer.register_state_dict_post_hook(_lr_to_float)
+    optimizer.register_load_state_dict_post_hook(_lr_to_tensor)
+    return optimizer
 
 
 def create_train_state(config: DQNConfig, device, seed: int,
@@ -133,12 +178,13 @@ def create_train_state(config: DQNConfig, device, seed: int,
 
 
 def current_lr(state: DQNTrainState) -> float:
-    return state.optimizer.param_groups[0]["lr"]
+    return float(state.optimizer.param_groups[0]["lr"])
 
 
 def set_lr(state: DQNTrainState, lr) -> DQNTrainState:
+    """The learning rate, rounded to float32, written in place."""
     for group in state.optimizer.param_groups:
-        group["lr"] = _f32(lr)
+        group["lr"].fill_(_f32(lr))
     return state
 
 
@@ -260,6 +306,22 @@ def dqn_targets(config: DQNConfig, target, batch) -> torch.Tensor:
         1.0 - batch["done"].to(torch.float32))
 
 
+def eager_reason(state: DQNTrainState, grad_reduce=None) -> Optional[str]:
+    """Why :func:`train_step` runs an update eagerly, or None where it
+    replays one captured update: ``"process_group"`` (a ``grad_reduce``:
+    its collectives are not captured), ``"model_group"`` (a sliced module
+    gathers over its model group in the forward and the backward) or
+    ``"device"`` (the networks off the card)."""
+    model = state.model
+    if grad_reduce is not None:
+        return "process_group"
+    if model.model_group is not None or model.dense_group is not None:
+        return "model_group"
+    if not next(model.parameters()).is_cuda:
+        return "device"
+    return None
+
+
 def train_step(config: DQNConfig, state: DQNTrainState, batch,
                grad_reduce=None):
     """One gradient update on a sampled batch (Dqn8:351-400), in place.
@@ -270,9 +332,37 @@ def train_step(config: DQNConfig, state: DQNTrainState, batch,
     and returns the mean loss. A sliced module's backward sums the input
     gradients of its sliced layers over the model group itself, and the
     loss is the same on every model rank.
+
+    Where :func:`eager_reason` finds nothing, the update replays the train
+    state's captured one (:class:`_UpdateGraph`); the first update of a
+    train state, and the first after its parameters, Adam's state or the
+    batch's shapes change, runs eagerly and then captures. The counts of
+    ``state.learner`` say which ran.
     Returns ``(loss, td_errors)``: the loss as a () tensor and the
     per-sample |TD| (B,), both without gradient.
     """
+    learner = state.learner
+    learner.eager_reason = reason = eager_reason(state, grad_reduce)
+    graph = learner.graph
+    if reason is None and graph is not None and graph.key == _graph_key(
+            config, state, batch):
+        out = graph.replay(batch)
+        learner.graph_updates += 1
+    else:
+        learner.graph = None  # freed before an eager update or a capture
+        out = _update(config, state, batch, grad_reduce)
+        learner.eager_updates += 1
+        if reason is None:
+            learner.graph = _UpdateGraph(config, state, batch)
+            learner.captures += 1
+    state.train_steps += 1
+    return out
+
+
+def _update(config: DQNConfig, state: DQNTrainState, batch,
+            grad_reduce=None):
+    """The work of one update, eager or under capture: the loss and the
+    per-sample |TD|."""
     with annotate("learner.forward"):
         targets = dqn_targets(config, state.target, batch)
         model = state.model
@@ -290,8 +380,59 @@ def train_step(config: DQNConfig, state: DQNTrainState, batch,
         if grad_reduce is not None:
             loss = grad_reduce(model.parameters(), loss)
         state.optimizer.step()
-    state.train_steps += 1
     return loss.detach(), (targets - q_taken.detach()).abs()
+
+
+def _keyed(state: DQNTrainState) -> list:
+    """The tensors a captured update reads in place: each parameter of
+    both networks, each group's learning rate and each of Adam's state
+    tensors."""
+    opt = state.optimizer
+    return [*state.model.parameters(), *state.target.parameters(),
+            *(g["lr"] for g in opt.param_groups),
+            *(t for st in opt.state.values() for t in st.values())]
+
+
+def _graph_key(config: DQNConfig, state: DQNTrainState, batch) -> tuple:
+    """What a captured update read: the config, the dropout generator,
+    :func:`_keyed`'s tensors by identity and storage (a restore that
+    replaces them needs a new capture, an in-place copy does not) and the
+    batch's shapes and dtypes."""
+    return (config, id(state.generator),
+            tuple((id(t), t.data_ptr()) for t in _keyed(state)),
+            tuple((k, v.shape, v.dtype) for k, v in batch.items()))
+
+
+class _UpdateGraph:
+    """One update of a train state captured in a CUDA graph: the target
+    forward, the train-mode forward with its dropout, the loss, the
+    backward and fused Adam's step. The graph reads the batch from static
+    copies and updates the parameters, their gradients and Adam's moments
+    and step in place; the dropout generator is registered with it, so a
+    replay draws what an eager update would and leaves the generator where
+    an eager update would."""
+
+    def __init__(self, config: DQNConfig, state: DQNTrainState, batch):
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        device = self.batch["board"].device
+        # The eager update's gradients go; the capture allocates its own.
+        state.optimizer.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device):
+            self.graph.register_generator_state(state.generator)
+            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream()):
+                self.loss, self.td = _update(config, state, self.batch)
+        # The graph holds what its key names, so that no id is reused.
+        self.key = _graph_key(config, state, batch)
+        self.held = (_keyed(state), state.generator)
+
+    def replay(self, batch):
+        """The update on ``batch``: its copies in, one replay, and copies of
+        the loss and the |TD| out, which a later replay leaves alone."""
+        for k, t in self.batch.items():
+            t.copy_(batch[k])
+        self.graph.replay()
+        return self.loss.clone(), self.td.clone()
 
 
 @torch.no_grad()

@@ -54,9 +54,10 @@ code 70 when no chunk (or checkpoint) ends in that many seconds.
 A vector step's parts are profiler spans (:func:`tpu2048_torch.metrics.
 profiling.annotate`, free with no profiler active): ``actor``,
 ``env_step``, ``replay_add`` and ``learner``; inside ``learner``, each
-update's ``learner.sample`` and :func:`~tpu2048_torch.agents.dqn.
-train_step`'s ``learner.forward``, ``learner.backward`` and
-``learner.optimizer``.
+update's ``learner.sample`` and, where :func:`~tpu2048_torch.agents.dqn.
+train_step` runs the update eagerly, its ``learner.forward``,
+``learner.backward`` and ``learner.optimizer`` (a replayed update is one
+graph launch).
 """
 
 from __future__ import annotations
