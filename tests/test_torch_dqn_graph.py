@@ -3,7 +3,8 @@
 
 On the CPU: which path an update takes and why (``eager_reason``: the
 device, a process group's ``grad_reduce``, a sliced module over two gloo
-ranks), the counts a train state carries, what a capture is keyed on, and
+ranks), the counts a train state carries, what a capture is keyed on (the
+shared rule of :mod:`tpu2048_torch.utils.cuda_graph`), and
 the learning rate as a 0-d tensor written in place, whose state dict holds
 a float, so that checkpoints of the float-lr optimizer still load.
 
@@ -35,6 +36,7 @@ from tpu2048_torch.parallel import mesh, testkit
 from tpu2048_torch.replay import buffer as replaylib
 from tpu2048_torch.replay import sharded
 from tpu2048_torch.training import dqn as ttrain
+from tpu2048_torch.utils import cuda_graph
 
 NARROW = dict(features=16, hidden=32, num_blocks=1, bf16=False, dropout=0.5,
               memory_size=256)
@@ -62,8 +64,15 @@ def same_grad(parameters, loss):
 
 def counts(state):
     learner = state.learner
-    return (learner.eager_updates, learner.graph_updates, learner.captures,
+    return (learner.eager_steps, learner.graph_steps, learner.captures,
             learner.eager_reason)
+
+
+def key(cfg, st, batch):
+    """The capture key of an update of ``st`` on ``batch``, as
+    :func:`tpu2048_torch.agents.dqn.train_step` asks for it."""
+    return cuda_graph.capture_key(cfg, batch, tdqn._keyed(st),
+                                  (st.generator,))
 
 
 def reload(state):
@@ -87,7 +96,7 @@ def test_updates_off_the_card_or_under_a_process_group_run_eager():
     for _ in range(3):
         tdqn.train_step(cfg, st, batch_of(gen, B))
     assert counts(st) == (3, 0, 0, "device")
-    assert st.learner.graph is None and st.train_steps == 3
+    assert st.learner.last is None and st.train_steps == 3
     tdqn.train_step(cfg, st, batch_of(gen, B), same_grad)
     assert counts(st) == (4, 0, 0, "process_group")
     assert tdqn.eager_reason(st) == "device"
@@ -123,27 +132,26 @@ def test_the_capture_key_follows_what_a_captured_update_reads():
     gen = torch.Generator().manual_seed(3)
     batch = batch_of(gen, B)
     tdqn.train_step(cfg, st, batch)  # Adam's state exists from here
-    key = tdqn._graph_key(cfg, st, batch)
+    before = key(cfg, st, batch)
     # In place: an LR change, a decay, a target sync, another update.
     tdqn.set_lr(st, 1e-4)
     tdqn.maybe_decay_lr(cfg, st, 2)
     tdqn.update_target(st)
     tdqn.train_step(cfg, st, batch_of(gen, B))
-    assert tdqn._graph_key(cfg, st, batch) == key
+    assert key(cfg, st, batch) == before
     # Another batch shape or dtype, another config, another generator.
-    assert tdqn._graph_key(cfg, st, batch_of(gen, 2 * B)) != key
-    assert tdqn._graph_key(cfg, st, dict(
-        batch, reward=batch["reward"].double())) != key
-    assert tdqn._graph_key(dataclasses.replace(cfg, gamma=0.9), st,
-                           batch) != key
+    assert key(cfg, st, batch_of(gen, 2 * B)) != before
+    assert key(cfg, st, dict(batch,
+                             reward=batch["reward"].double())) != before
+    assert key(dataclasses.replace(cfg, gamma=0.9), st, batch) != before
     other = dataclasses.replace(st, generator=torch.Generator())
-    assert tdqn._graph_key(cfg, other, batch) != key
+    assert key(cfg, other, batch) != before
     # A restore replaces Adam's state and learning rate.
     reload(st)
-    assert tdqn._graph_key(cfg, st, batch) != key
-    key = tdqn._graph_key(cfg, st, batch)
+    assert key(cfg, st, batch) != before
+    before = key(cfg, st, batch)
     st.optimizer.load_state_dict(ttrain._clone(st.optimizer.state_dict()))
-    assert tdqn._graph_key(cfg, st, batch) != key
+    assert key(cfg, st, batch) != before
 
 
 # -- the learning rate (CPU) -----------------------------------------------

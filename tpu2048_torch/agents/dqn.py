@@ -16,8 +16,9 @@ functions over it:
   vanilla-DQN targets, MSE over the taken actions scaled 1/4, one Adam
   step; returns the loss and the per-sample |TD|. On the card, after one
   eager update, it captures one whole update in a CUDA graph and replays
-  it for every later update of the train state (:class:`Learner`);
-  :func:`eager_reason` says where it stays eager.
+  it for every later update of the train state
+  (:mod:`tpu2048_torch.utils.cuda_graph`); :func:`eager_reason` says where
+  it stays eager.
 * :func:`epsilon_value` and :func:`maybe_decay_lr` follow the JAX
   package's float32 arithmetic on the host: the step counter and the update
   count are host integers, and the learning rate is a float32 value, a 0-d
@@ -42,13 +43,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu2048_torch.agents.tabular import _first_true
 from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.models import dqn as dqn_model
+from tpu2048_torch.ops.board import first_true
 from tpu2048_torch.parallel import mesh
 from tpu2048_torch.parallel.mesh import ShardedSource
 from tpu2048_torch.replay import buffer as replaylib
 from tpu2048_torch.replay import sharded
+from tpu2048_torch.utils.cuda_graph import Graphs
 
 ADAM_EPS = 1e-7  # keras Adam's epsilon, which the reference compiles with
 SelectDraws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -83,17 +85,6 @@ class DQNConfig:
     fused_conv: bool = False  # one 4x4 conv a block (models/dqn.py)
 
 
-class Learner:
-    """How a train state's updates ran: the counts ``eager_updates``,
-    ``graph_updates`` and ``captures``, the last update's ``eager_reason``
-    (None where it captured or replayed), and the last update captured."""
-
-    def __init__(self):
-        self.eager_updates = self.graph_updates = self.captures = 0
-        self.eager_reason: Optional[str] = None
-        self.graph: Optional[_UpdateGraph] = None
-
-
 @dataclasses.dataclass
 class DQNTrainState:
     model: dqn_model.DQNCNN  # online network
@@ -102,7 +93,8 @@ class DQNTrainState:
     step_counter: int  # epsilon decay steps (act calls)
     train_steps: int  # gradient updates taken
     generator: torch.Generator  # the learner's dropout masks
-    learner: Learner = dataclasses.field(default_factory=Learner)
+    # The captured update and the counts of how the updates ran.
+    learner: Graphs = dataclasses.field(default_factory=Graphs)
 
 
 def _f32(x) -> float:
@@ -290,7 +282,7 @@ def select_actions(model, boards, legal_mask, restrict_to_legal,
     pick = torch.floor(legal_u * torch.clamp_min(n_legal, 1).to(
         torch.float32)).to(torch.int32)
     csum = torch.cumsum(legal_i, -1)
-    rand_legal = _first_true((csum == pick[:, None] + 1) & legal_mask)
+    rand_legal = first_true((csum == pick[:, None] + 1) & legal_mask)
     rand_legal = torch.where(has_legal, rand_legal, rand_any)
     rand = torch.where(restrict_to_legal, rand_legal, rand_any)
 
@@ -334,27 +326,21 @@ def train_step(config: DQNConfig, state: DQNTrainState, batch,
     loss is the same on every model rank.
 
     Where :func:`eager_reason` finds nothing, the update replays the train
-    state's captured one (:class:`_UpdateGraph`); the first update of a
-    train state, and the first after its parameters, Adam's state or the
-    batch's shapes change, runs eagerly and then captures. The counts of
-    ``state.learner`` say which ran.
+    state's captured one (``state.learner``, a :class:`~tpu2048_torch.
+    utils.cuda_graph.Graphs`; the batch copied in, :func:`_keyed`'s
+    tensors updated in place); the first update of a train state, and the
+    first after :func:`_keyed`'s tensors or the batch's shapes change,
+    runs eagerly and then captures. The counts of ``state.learner`` say
+    which ran.
     Returns ``(loss, td_errors)``: the loss as a () tensor and the
     per-sample |TD| (B,), both without gradient.
     """
-    learner = state.learner
-    learner.eager_reason = reason = eager_reason(state, grad_reduce)
-    graph = learner.graph
-    if reason is None and graph is not None and graph.key == _graph_key(
-            config, state, batch):
-        out = graph.replay(batch)
-        learner.graph_updates += 1
-    else:
-        learner.graph = None  # freed before an eager update or a capture
-        out = _update(config, state, batch, grad_reduce)
-        learner.eager_updates += 1
-        if reason is None:
-            learner.graph = _UpdateGraph(config, state, batch)
-            learner.captures += 1
+    out = state.learner.run(
+        lambda b: _update(config, state, b, grad_reduce), batch, 1,
+        eager_reason(state, grad_reduce), key=config,
+        inplace=lambda: _keyed(state), generators=lambda: (state.generator,),
+        # The eager update's gradients go; the capture allocates its own.
+        before_capture=lambda: state.optimizer.zero_grad(set_to_none=True))
     state.train_steps += 1
     return out
 
@@ -391,48 +377,6 @@ def _keyed(state: DQNTrainState) -> list:
     return [*state.model.parameters(), *state.target.parameters(),
             *(g["lr"] for g in opt.param_groups),
             *(t for st in opt.state.values() for t in st.values())]
-
-
-def _graph_key(config: DQNConfig, state: DQNTrainState, batch) -> tuple:
-    """What a captured update read: the config, the dropout generator,
-    :func:`_keyed`'s tensors by identity and storage (a restore that
-    replaces them needs a new capture, an in-place copy does not) and the
-    batch's shapes and dtypes."""
-    return (config, id(state.generator),
-            tuple((id(t), t.data_ptr()) for t in _keyed(state)),
-            tuple((k, v.shape, v.dtype) for k, v in batch.items()))
-
-
-class _UpdateGraph:
-    """One update of a train state captured in a CUDA graph: the target
-    forward, the train-mode forward with its dropout, the loss, the
-    backward and fused Adam's step. The graph reads the batch from static
-    copies and updates the parameters, their gradients and Adam's moments
-    and step in place; the dropout generator is registered with it, so a
-    replay draws what an eager update would and leaves the generator where
-    an eager update would."""
-
-    def __init__(self, config: DQNConfig, state: DQNTrainState, batch):
-        self.batch = {k: v.clone() for k, v in batch.items()}
-        device = self.batch["board"].device
-        # The eager update's gradients go; the capture allocates its own.
-        state.optimizer.zero_grad(set_to_none=True)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device):
-            self.graph.register_generator_state(state.generator)
-            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream()):
-                self.loss, self.td = _update(config, state, self.batch)
-        # The graph holds what its key names, so that no id is reused.
-        self.key = _graph_key(config, state, batch)
-        self.held = (_keyed(state), state.generator)
-
-    def replay(self, batch):
-        """The update on ``batch``: its copies in, one replay, and copies of
-        the loss and the |TD| out, which a later replay leaves alone."""
-        for k, t in self.batch.items():
-            t.copy_(batch[k])
-        self.graph.replay()
-        return self.loss.clone(), self.td.clone()
 
 
 @torch.no_grad()

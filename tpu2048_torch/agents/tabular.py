@@ -33,6 +33,8 @@ import os
 import numpy as np
 import torch
 
+from tpu2048_torch.ops.board import first_true, one_hot
+
 #: Slots per bucket: a key lives in one of the 16 slots of its bucket.
 PROBES = 16
 _MASK32 = 0xFFFFFFFF
@@ -119,16 +121,6 @@ def _hash(lo: torch.Tensor, hi: torch.Tensor, capacity: int) -> torch.Tensor:
     return (h & (capacity - 1)).to(torch.int32)
 
 
-def one_hot(x: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
-    """``(..., n)`` one-hot of int ``x`` (all zero outside ``[0, n)``)."""
-    return (x.unsqueeze(-1) == torch.arange(n, device=x.device)).to(dtype)
-
-
-def _first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first True along dim 1 (0 where none), int64."""
-    return mask.to(torch.int8).argmax(1)
-
-
 def _probe(table: QTable, lo: torch.Tensor, hi: torch.Tensor):
     """For each key, ``(match_slot, free_slot)``: int32 slots, -1 when not
     found in the key's 16-slot bucket (``tpu2048.agents.tabular._probe``).
@@ -144,7 +136,7 @@ def _probe(table: QTable, lo: torch.Tensor, hi: torch.Tensor):
     free = (wlo == 0) & (whi == 0) & real
 
     def first(mask):
-        slot = slots.gather(1, _first_true(mask)[:, None])[:, 0]
+        slot = slots.gather(1, first_true(mask)[:, None])[:, 0]
         return torch.where(mask.any(1), slot, -1).to(torch.int32)
 
     return first(match), first(free)

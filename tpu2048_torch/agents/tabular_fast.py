@@ -30,8 +30,8 @@ from typing import Iterable, Tuple
 import torch
 
 from tpu2048_torch.agents import tabular as tab
-from tpu2048_torch.agents.tabular import _first_true, one_hot
 from tpu2048_torch.ops import table_kernel as tk
+from tpu2048_torch.ops.board import first_true, one_hot
 
 if tk.BUCKET != tab.PROBES:
     raise ImportError("the table kernel's bucket width must equal PROBES")
@@ -140,9 +140,9 @@ def _probe_gathered(g, lo, hi):
     real = ((lo | hi) != 0).unsqueeze(1)
     match = (wlo == lo.unsqueeze(1)) & (whi == hi.unsqueeze(1)) & real
     free = (wlo == 0) & (whi == 0) & real
-    first_match = _first_true(match)
+    first_match = first_true(match)
     has_match = match.any(1)
-    first_free = _first_true(free)
+    first_free = first_true(free)
     has_free = free.any(1)
     q_rows = g[:, :, 2:6].gather(
         1, first_match.view(-1, 1, 1).expand(-1, 1, 4))[:, 0]

@@ -25,11 +25,11 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from tpu2048_torch.ops.ntuple_kernel import SYMMETRIES, lut_indices
+
 # Yeh et al.'s 4x6-tuple network (TDL2048-Demo's patterns).
 PATTERNS_4X6 = ((0, 1, 2, 3, 4, 5), (4, 5, 6, 7, 8, 9),
                 (0, 1, 2, 4, 5, 6), (4, 5, 6, 8, 9, 10))
-SYMMETRIES = 8
-MAX_EXPONENT = 15
 
 
 def symmetries() -> np.ndarray:
@@ -63,20 +63,6 @@ def check_patterns(patterns) -> Tuple[Tuple[int, ...], ...]:
         if len(set(p)) != k or not all(0 <= c < 16 for c in p):
             raise ValueError(f"bad pattern {p}")
     return patterns
-
-
-def lut_indices(boards: torch.Tensor, maps: torch.Tensor) -> torch.Tensor:
-    """``(B, L)`` int64 indices into the flat weights of the ``(B, 16)``
-    boards' ``L`` lookups: ``maps`` is :func:`index_maps` as a tensor on the
-    boards' device, of any integer type."""
-    maps = maps.to(torch.int64)
-    n, k = maps.shape
-    e = boards.to(torch.int64).clamp(0, MAX_EXPONENT)
-    cells = e[:, maps]  # (B, L, k)
-    shifts = 4 * torch.arange(k, device=boards.device)
-    local = (cells << shifts).sum(-1)
-    base = (torch.arange(n, device=boards.device) // SYMMETRIES) << (4 * k)
-    return local + base
 
 
 class NTupleNetwork:

@@ -15,6 +15,16 @@ NUM_ACTIONS = 4
 LEFT, UP, RIGHT, DOWN = 0, 1, 2, 3
 
 
+def one_hot(x: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
+    """``(..., n)`` one-hot of int ``x`` (all zero outside ``[0, n)``)."""
+    return (x.unsqueeze(-1) == torch.arange(n, device=x.device)).to(dtype)
+
+
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along dim 1 (0 where none), int64."""
+    return mask.to(torch.int8).argmax(1)
+
+
 def _to_left_frame(board, action: int):
     """View ``board`` so that moving ``action`` is a left move on rows."""
     if action == LEFT:

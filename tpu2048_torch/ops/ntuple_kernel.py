@@ -20,7 +20,6 @@ from typing import NamedTuple
 
 import torch
 
-from tpu2048_torch.models.ntuple import lut_indices
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops._build import CudaLibrary
 from tpu2048_torch.ops.step_kernel import (_check, _device_index,
@@ -29,6 +28,22 @@ from tpu2048_torch.ops.step_kernel import (_check, _device_index,
 # Mirrors of csrc/ntuple_kernel.cu's limits (kMaxLookups, kMaxCells).
 MAX_LOOKUPS = 64
 MAX_CELLS = 7
+SYMMETRIES = 8  # lookups a pattern
+MAX_EXPONENT = 15  # a cell's exponent in an index is clipped here
+
+
+def lut_indices(boards: torch.Tensor, maps: torch.Tensor) -> torch.Tensor:
+    """``(B, L)`` int64 indices into the flat weights of the ``(B, 16)``
+    boards' ``L`` lookups: ``maps`` is :func:`tpu2048_torch.models.ntuple.
+    index_maps` as a tensor on the boards' device, of any integer type."""
+    maps = maps.to(torch.int64)
+    n, k = maps.shape
+    e = boards.to(torch.int64).clamp(0, MAX_EXPONENT)
+    cells = e[:, maps]  # (B, L, k)
+    shifts = 4 * torch.arange(k, device=boards.device)
+    local = (cells << shifts).sum(-1)
+    base = (torch.arange(n, device=boards.device) // SYMMETRIES) << (4 * k)
+    return local + base
 
 
 class Afterstates(NamedTuple):

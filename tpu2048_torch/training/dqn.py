@@ -72,7 +72,6 @@ import numpy as np
 import torch
 
 from tpu2048_torch.agents import dqn as dqnlib
-from tpu2048_torch.agents.tabular import one_hot
 from tpu2048_torch.env import env as envlib
 from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SIMPLE, EnvConfig
@@ -668,7 +667,7 @@ def _vector_step(config: DQNTrainConfig, fcfg, st: DQNLoopState,
 
     done_f = ts.done.to(torch.float32)
     final_exp = next_boards.reshape(b, 16).amax(-1).to(torch.int64)
-    hist_inc = (one_hot(final_exp.clamp(0, 16), 17, torch.int32)
+    hist_inc = (board_ops.one_hot(final_exp.clamp(0, 16), 17, torch.int32)
                 * ts.done[:, None]).sum(0, dtype=torch.int32)
     ep_score = (st.env_state.score + ts.merge_score).to(torch.float32)
     st.env_state = env_state

@@ -9,7 +9,7 @@ A chunk is ``steps_per_chunk`` steps of :func:`train_step`; the running
 counts stay on the device and the host reads them once a chunk. On the
 card, with the production bit source (a :class:`~tpu2048_torch.env.fast.
 GeneratorBits`), a chunk replays one step captured in a CUDA graph
-(:mod:`tpu2048_torch.training.graph_step`) instead of issuing its launches
+(:mod:`tpu2048_torch.utils.cuda_graph`) instead of issuing its launches
 from the host: the first chunk runs one step eagerly (the kernels' builds
 and loads), captures, and replays the rest; :func:`eager_reason` says why
 a chunk runs eagerly instead. The network's weights are updated in place, never
@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -35,7 +35,7 @@ from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.models.ntuple import NTupleNetwork
 from tpu2048_torch.ops import ntuple_kernel as nk
 from tpu2048_torch.ops.step_kernel import fused_env_step
-from tpu2048_torch.training.graph_step import StepGraphs
+from tpu2048_torch.utils.cuda_graph import Graphs
 
 # Simple mode: the merge score is the reward, and no terminal bonus.
 ENV = fastlib.FastEnvConfig(terminal_bonus=False)
@@ -123,50 +123,21 @@ def train_chunk(config: NTupleTrainConfig, net: NTupleNetwork,
                 state: NTupleTrainState, bits) -> NTupleTrainState:
     """Run ``steps_per_chunk`` steps. Where :func:`eager_reason` finds
     nothing they replay one captured :func:`train_step`
-    (:mod:`tpu2048_torch.training.graph_step`); the first chunk of a
+    (:mod:`tpu2048_torch.utils.cuda_graph`); the first chunk of a
     network, batch and source runs one step eagerly, captures, and replays
     the rest. The counts ``train_chunk.eager_steps``, ``.graph_steps`` and
     ``.captures`` say which ran."""
-    graphed = eager_reason(net, bits) is None
-    w = net.weights
-    return _GRAPHS.chunk(
-        config.steps_per_chunk, state,
-        lambda st: train_step(config, net, st, bits), graphed,
-        key=(config.agent, config.batch_size, w.device, w.data_ptr(),
-             id(bits.generator)) if graphed else None,
-        tensors=_tensors, rebuild=_state,
-        generators=(bits.generator,) if graphed else (), device=w.device)
+    return _GRAPHS.run(
+        lambda st: train_step(config, net, st, bits), state,
+        config.steps_per_chunk, eager_reason(net, bits),
+        key=(config.agent, config.batch_size),  # what a step reads
+        inplace=lambda: (net.weights,),
+        generators=lambda: (bits.generator,))
 
 
-train_chunk.eager_steps = 0
-train_chunk.graph_steps = 0
-train_chunk.captures = 0
-
-_COUNTS = ("episodes_done", "env_steps", "sum_score", "best_tile", "values",
-           "v_prev", "actions")
 # The kernels whose ``.launches`` count a step's launches.
-_GRAPHS = StepGraphs(train_chunk, (nk.afterstate_values, nk.td_update_,
-                                   fused_env_step), "ntuple.step")
-
-
-def _tensors(state: NTupleTrainState) -> Dict[str, torch.Tensor]:
-    """Every tensor of the state, by name."""
-    out = {f.name: getattr(state.env_state, f.name)
-           for f in dataclasses.fields(state.env_state)}
-    out.update((f.name, getattr(state.lanes, f.name))
-               for f in dataclasses.fields(state.lanes))
-    out.update((name, getattr(state, name)) for name in _COUNTS)
-    return out
-
-
-def _state(tensors: Dict[str, torch.Tensor]) -> NTupleTrainState:
-    def part(cls):
-        return cls(**{f.name: tensors[f.name]
-                      for f in dataclasses.fields(cls)})
-
-    return NTupleTrainState(env_state=part(fastlib.FastEnvState),
-                            lanes=part(agent.Lanes),
-                            **{name: tensors[name] for name in _COUNTS})
+_GRAPHS = Graphs(train_chunk, (nk.afterstate_values, nk.td_update_,
+                               fused_env_step), "ntuple.step")
 
 
 def train(config: NTupleTrainConfig, device,

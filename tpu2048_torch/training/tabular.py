@@ -17,7 +17,7 @@ table it never waits for the device: the running sums stay on the device
 and the host reads them once a chunk. There, on the card, with the fast
 engine and the production sources of :func:`sources`, a chunk replays one
 step captured in a CUDA graph instead of issuing its ~370 launches a step
-from the host (:mod:`tpu2048_torch.training.graph_step`); the arithmetic
+from the host (:mod:`tpu2048_torch.utils.cuda_graph`); the arithmetic
 is the same step's.
 The legacy update reads the number of its ordered rounds once a step. With
 ``watchdog_timeout`` a watchdog exits the process with code 70 when no
@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, List, Optional, Union
 
 import torch
 
@@ -45,8 +45,9 @@ from tpu2048_torch.env import fast as fastlib
 from tpu2048_torch.env.env import SHAPED, EnvConfig
 from tpu2048_torch.metrics.profiling import annotate
 from tpu2048_torch.ops import table_kernel as tk
+from tpu2048_torch.ops.board import one_hot
 from tpu2048_torch.ops.step_kernel import from_cell_major, fused_env_step
-from tpu2048_torch.training.graph_step import StepGraphs
+from tpu2048_torch.utils.cuda_graph import Graphs
 from tpu2048_torch.utils.watchdog import STARTUP_FLOOR, Watchdog
 
 
@@ -204,7 +205,7 @@ def train_step(config: TabularTrainConfig, state: TabularTrainState, bits,
                 ts.done, _episode_score(st, ts), 0.0).sum(),
             sum_length=st.sum_length + (ts.episode_steps * done_f).sum(),
             best_tile=torch.maximum(st.best_tile, ts.max_number.amax()),
-            action_counts=st.action_counts + tab.one_hot(
+            action_counts=st.action_counts + one_hot(
                 actions, 4, torch.int32).sum(0, dtype=torch.int32),
         )
     return st, eps
@@ -240,63 +241,23 @@ def train_chunk(config: TabularTrainConfig, state: TabularTrainState, bits,
     updated in place; every other tensor returned is new.
 
     Where :func:`eager_reason` finds nothing, the steps replay one captured
-    :func:`train_step` (:mod:`tpu2048_torch.training.graph_step`); the
-    first such chunk of a table, config and pair of sources runs one step
-    eagerly, captures, and replays the rest. Else every step is a
-    :func:`train_step`. The counts ``train_chunk.eager_steps``,
-    ``.graph_steps`` and ``.captures`` say which ran."""
-    graphed = eager_reason(config, state, bits, draws) is None
-
-    def step(pair):
-        return train_step(config, pair[0], bits, draws)
-
-    if not graphed:
-        return _GRAPHS.chunk(config.steps_per_chunk, (state, None), step,
-                             False)
-    data, env_cls = state.table.data, type(state.env_state)
-
-    def rebuild(tensors):
-        env = env_cls(**{f.name: tensors[f.name]
-                         for f in dataclasses.fields(env_cls)})
-        table = tabf.PackedQTable(data=data, dropped=tensors["dropped"])
-        return (TabularTrainState(table=table, env_state=env,
-                                  **{k: tensors[k] for k in _COUNTS}),
-                tensors["eps"])
-
-    return _GRAPHS.chunk(
-        config.steps_per_chunk, (state, None), step, True,
-        # The graph is keyed by what it captured: batch, agent and env
-        # config, the table's storage and the two generators.
-        key=(config.agent, config.env, config.batch_size, env_cls,
-             data.device, data.data_ptr(), tuple(data.shape),
-             id(bits.generator), id(draws.generator)),
-        tensors=_tensors, rebuild=rebuild,
-        generators=(bits.generator, draws.generator), device=data.device)
+    :func:`train_step` (:mod:`tpu2048_torch.utils.cuda_graph`), which
+    updates the table's data in place; the first such chunk of a table,
+    config and pair of sources runs one step eagerly, captures, and
+    replays the rest. Else every step is a :func:`train_step`. The counts
+    ``train_chunk.eager_steps``, ``.graph_steps`` and ``.captures`` say
+    which ran."""
+    return _GRAPHS.run(
+        lambda pair: train_step(config, pair[0], bits, draws), (state, None),
+        config.steps_per_chunk, eager_reason(config, state, bits, draws),
+        key=(config.agent, config.env, config.batch_size),  # what a step reads
+        inplace=lambda: (state.table.data,),
+        generators=lambda: (bits.generator, draws.generator))
 
 
-train_chunk.eager_steps = 0
-train_chunk.graph_steps = 0
-train_chunk.captures = 0
-
-_COUNTS = ("episodes_done", "env_steps", "sum_return", "sum_score",
-           "sum_length", "best_tile", "action_counts")
 # The kernels whose ``.launches`` count a step's launches.
-_GRAPHS = StepGraphs(train_chunk, (fused_env_step, tk.bucket_gather,
-                                   tk.bucket_scatter_), "tabular.step")
-
-
-def _tensors(pair) -> Dict[str, torch.Tensor]:
-    """Every tensor of a packed-table state but the table's data, by name:
-    the env lanes, the running counts and sums, ``dropped``, and the
-    epsilon where the pair has one."""
-    state, eps = pair
-    out = {f.name: getattr(state.env_state, f.name)
-           for f in dataclasses.fields(state.env_state)}
-    out.update((name, getattr(state, name)) for name in _COUNTS)
-    out["dropped"] = state.table.dropped
-    if eps is not None:
-        out["eps"] = eps
-    return out
+_GRAPHS = Graphs(train_chunk, (fused_env_step, tk.bucket_gather,
+                               tk.bucket_scatter_), "tabular.step")
 
 
 def sources(seed: int, device, engine: str = "fast"):
