@@ -14,12 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
 from tpu2048.agents.dqn import DQNConfig as JaxDQNConfig
 from tpu2048.models import dqn as jdqn
 from tpu2048_torch.agents.dqn import DQNConfig
 from tpu2048_torch.checkpoint.params import load_params, save_params
 from tpu2048_torch.models import dqn as tdqn
+from tpu2048_torch.ops.step_kernel import from_cell_major
 
 NARROW = dict(features=32, hidden=16, num_blocks=2)
 TOL = {False: 1e-4, True: 1e-2}  # by bf16
@@ -141,3 +143,72 @@ def test_float32_model_turns_tf32_off():
     tdqn.create_model(DQNConfig(bf16=False, **NARROW), "cpu")
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def plain_nchw_q(model, boards_t):
+    """The module's forward written in plain NCHW: contiguous activations,
+    OIHW weights, each kernel on its own SAME-padded input ((k - 1) // 2
+    before, k // 2 after), its bias added alone; the flatten in NHWC
+    order."""
+    dtype = model.dtype
+    x = (boards_t.long().unsqueeze(-1)
+         == torch.arange(tdqn.NUM_TILE_CHANNELS)).to(dtype)
+    x = x.permute(0, 3, 1, 2).contiguous()
+    for block in model.blocks:
+        outs = []
+        for k, conv in zip(tdqn.KERNEL_SIZES, block.convs):
+            pads = ((k - 1) // 2, k // 2) * 2
+            y = F.conv2d(F.pad(x, pads).contiguous(),
+                         conv.weight.to(dtype).contiguous())
+            outs.append(y + conv.bias.to(dtype)[:, None, None])
+        x = F.relu(torch.cat(outs, 1)).contiguous()
+    x = x.permute(0, 2, 3, 1).reshape(len(boards_t), -1)
+    x = F.relu(F.linear(x, model.dense.weight.to(dtype))
+               + model.dense.bias.to(dtype))
+    return model.head(x.to(torch.float32))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fused", [False, True])
+def test_convolutions_take_channels_last_operands(fused, bf16, monkeypatch):
+    """Every convolution gets a channels-last input and weight, from boards
+    laid out as the env hands them over (a view of cell-major lanes); the
+    Q-values equal the plain NCHW forward's, and the parameters stay
+    float32 OIHW."""
+    widths = dict(NARROW, num_blocks=3)
+    model = tdqn.create_model(DQNConfig(bf16=bf16, fused_conv=fused,
+                                        **widths), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    tdqn.init_params(model, gen)
+    with torch.no_grad():
+        for block in model.blocks:
+            for conv in block.convs:
+                conv.bias.normal_(0.0, 0.1, generator=gen)
+    model.eval()
+    b = boards(3, n=64)
+    cell_major = torch.from_numpy(b).reshape(len(b), 16).T.contiguous()
+    boards_t = from_cell_major(cell_major)
+    assert not boards_t.is_contiguous()
+    seen = []
+    conv2d = F.conv2d
+
+    def recording(x, weight, *args, **kwargs):
+        cl = torch.channels_last
+        seen.append((x.is_contiguous(memory_format=cl),
+                     weight.is_contiguous(memory_format=cl)))
+        return conv2d(x, weight, *args, **kwargs)
+
+    monkeypatch.setattr(tdqn.F, "conv2d", recording)
+    with torch.no_grad():
+        q = model(boards_t)
+    monkeypatch.undo()
+    assert seen == [(True, True)] * (3 if fused else 12)
+    with torch.no_grad():
+        want = plain_nchw_q(model, torch.from_numpy(b)).numpy()
+    if bf16:
+        assert_close(q.numpy(), want, True)
+    else:
+        tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(q.numpy(), want, rtol=0, atol=tol)
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32 and p.is_contiguous(), name

@@ -15,6 +15,13 @@ parameters. Flatten runs in NHWC order, as the flax module flattens, so the
 dense weights carry over unpermuted. Convolutions and matrix products are
 library calls (cuDNN/cuBLAS), as they are XLA ops in the JAX package.
 
+The activations are NHWC in memory from the one-hot to the flatten
+(NCHW-shaped tensors with ``torch.channels_last`` strides), and each
+convolution's ``dtype`` weight is cast into channels-last (OHWI) in its
+one copy: cuDNN's kernels compute in NHWC, so no layout conversion runs
+around a convolution, and the flatten is a view. The parameters stay
+float32 OIHW, as ``nn.Conv2d`` holds them.
+
 In train mode dropout draws its mask from an explicit ``torch.Generator``
 by flax's rule: keep with probability ``1 - rate``, scale the kept values
 by ``1 / (1 - rate)`` in ``dtype``. The gradient flows through the ``dtype``
@@ -51,30 +58,40 @@ from tpu2048_torch.utils.device import resolve_device
 
 NUM_TILE_CHANNELS = 16  # one-hot depth, Dqn8:274
 KERNEL_SIZES = (1, 2, 3, 4)
-# TF/XLA SAME padding on a size-4 axis: (before, after) for each kernel size.
-SAME_PADS = {1: (0, 0), 2: (0, 1), 3: (1, 1), 4: (1, 2)}
 # The fused block's 4x4 frame: each kernel's place in it as F.pad's
 # (left, right, top, bottom), tap [1, 1] for k=1, [1:3, 1:3] for k=2,
-# [0:3, 0:3] for k=3 (tpu2048/models/dqn.py:84-88); k=4 fills the frame,
-# and the input is padded by k=4's SAME pads on each side.
+# [0:3, 0:3] for k=3 (tpu2048/models/dqn.py:84-88); k=4 fills the frame.
 FUSED_FRAME = {1: (1, 2, 1, 2), 2: (1, 1, 1, 1), 3: (0, 1, 0, 1)}
 # flax's lecun_normal draws a normal truncated to [-2, 2] and divides by its
 # standard deviation, this constant, so the weights have variance 1/fan_in.
 _TRUNC_STD = 0.87962566103423978
 
 
+def _conv(x: torch.Tensor, weight: torch.Tensor, k: int,
+          dtype: torch.dtype) -> torch.Tensor:
+    """A stride-1 convolution of a k x k ``weight``, cast to ``dtype`` in
+    channels-last, padded (k - 1) // 2 on every side by cuDNN itself."""
+    return F.conv2d(x, weight.to(dtype, memory_format=torch.channels_last),
+                    padding=(k - 1) // 2)
+
+
 class MultiKernelConvBlock(nn.Module):
     """Four parallel convs (k = 1..4), concat, ReLU
     (``tpu2048.models.dqn.MultiKernelConvBlock``).
 
+    TF/XLA SAME padding of a k x k kernel on a size-4 axis puts (k - 1) // 2
+    zeros before and k // 2 after. The convolution pads (k - 1) // 2 on both
+    sides; the one more row and column after that the even kernels need is
+    one ``F.pad`` a block, which k = 2 and k = 4 share.
+
     The parameters are the four logical kernels either way. ``fused=False``
-    runs four convolutions, each on its SAME-padded input; ``fused=True``
-    builds one OIHW 4x4 weight in each forward (each kernel padded into its
-    place in the frame, the four concatenated along O, then cast to
-    ``dtype``) and runs one convolution; autograd carries the gradient back
-    into the four kernels. With a ``model_group`` (:func:`shard_module`)
-    each kernel holds its slice of the ``features/4`` filters and the block
-    its slice of the output, gathered over the group."""
+    runs four convolutions; ``fused=True`` builds one OIHW 4x4 weight in each
+    forward (each kernel padded into its place in the frame, the four
+    concatenated along O) and runs one convolution; autograd carries the
+    gradient back into the four kernels. The biases, concatenated, are added
+    once. With a ``model_group`` (:func:`shard_module`) each kernel holds its
+    slice of the ``features/4`` filters and the block its slice of the
+    output, gathered over the group."""
 
     model_group: Optional[mesh.ModelGroup] = None
 
@@ -89,28 +106,24 @@ class MultiKernelConvBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, C, 4, 4)`` NCHW in ``dtype`` -> ``(B, features, 4, 4)``."""
+        """``(B, C, 4, 4)`` in ``dtype``, channels-last -> ``(B, features,
+        4, 4)``, channels-last."""
         group = self.model_group
         if group is not None:
             x = mesh.copy_to_model_group(x, group)
+        after = F.pad(x, (0, 1, 0, 1))
         if self.fused:
             weight = torch.cat([
                 F.pad(conv.weight, FUSED_FRAME[k]) if k in FUSED_FRAME
                 else conv.weight
                 for k, conv in zip(KERNEL_SIZES, self.convs)])
-            bias = torch.cat([conv.bias for conv in self.convs])
-            before, after = SAME_PADS[4]
-            y = F.conv2d(F.pad(x, (before, after, before, after)),
-                         weight.to(self.dtype))
-            y = F.relu(y + bias.to(self.dtype)[:, None, None])
+            y = _conv(after, weight, 4, self.dtype)
         else:
-            outs = []
-            for k, conv in zip(KERNEL_SIZES, self.convs):
-                before, after = SAME_PADS[k]
-                y = F.conv2d(F.pad(x, (before, after, before, after)),
-                             conv.weight.to(self.dtype))
-                outs.append(y + conv.bias.to(self.dtype)[:, None, None])
-            y = F.relu(torch.cat(outs, dim=1))
+            y = torch.cat([
+                _conv(x if k % 2 else after, conv.weight, k, self.dtype)
+                for k, conv in zip(KERNEL_SIZES, self.convs)], dim=1)
+        bias = torch.cat([conv.bias for conv in self.convs])
+        y = F.relu(y + bias.to(self.dtype)[:, None, None])
         if group is None:
             return y
         return mesh.gather_from_model_group(y, group, len(KERNEL_SIZES))
@@ -144,10 +157,13 @@ class DQNCNN(nn.Module):
         """Q-values; in train mode with a nonzero dropout rate the mask is
         drawn from ``generator`` (required then)."""
         # One-hot by comparison: an exponent >= 16 gives a zero vector, as
-        # jax.nn.one_hot does (F.one_hot would raise).
+        # jax.nn.one_hot does (F.one_hot would raise). The boards' int64
+        # copy is contiguous whatever their strides (the env's are a view
+        # of its cell-major lanes), so the one-hot is NHWC in memory.
         channels = torch.arange(NUM_TILE_CHANNELS, device=boards.device)
-        x = (boards.to(torch.int64).unsqueeze(-1) == channels).to(self.dtype)
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = boards.to(torch.int64, memory_format=torch.contiguous_format)
+        x = (x.unsqueeze(-1) == channels).to(self.dtype)
+        x = x.permute(0, 3, 1, 2)  # NCHW in shape, NHWC in memory
         for block in self.blocks:
             x = block(x)
         x = x.permute(0, 2, 3, 1).flatten(1)  # flatten in NHWC order
