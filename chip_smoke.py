@@ -12,7 +12,7 @@ at ``ROOT`` (for example an unpacked parent commit), and ``python3
 chip_smoke.py --step-timing ROOT`` only phase 5 on its step kernel and
 phase 12's rows and host split on its rollout kernel, so that two versions
 can be timed in one run on one card. ``python3 chip_smoke.py --ntuple``
-runs phases 1, 2 and 21 alone.
+runs phases 1, 2 and 21 alone, ``--search`` phases 1, 2 and 22.
 
 1. The card's name, power limit and maximum SM clock, the torch and CUDA
    versions, and the 32-bit integer peak that the bounds use.
@@ -223,11 +223,23 @@ runs phases 1, 2 and 21 alone.
     launches and one step kernel a step, every step after the first a
     replay of one captured step; and ``eval --policy ntuple`` on the saved
     weights, one afterstate launch and one step kernel a batched step.
+22. The expectimax search (``ops/ntuple_kernel.py::search_values``,
+    ``csrc/expectimax_kernel.cu``) at 512 lanes, the 4x6-tuple set: at
+    unit-normal weights over the whole 256 MiB, the kernels against
+    ``plain_search_values`` on the same card tensors at depths 2 and 3 on
+    early, mid and late boards: leaves counted equal, legality equal,
+    values within ``NT_RTOL``, actions equal but at near ties. Then on a
+    table trained as the cell ``ntuple_eval_expectimax`` fills it: ``eval
+    --policy ntuple --search-depth 3`` through ``tpu2048_torch.cli.main``
+    (512 games at batch 512; two search launches and one step kernel a
+    batched step, no afterstate launch), and the search timed at the roots of steps 0, 64 and 192 of a depth-3 call
+    (eager, device only from a CUDA graph, the host time of a call, one
+    plain call) beside its bound (``benchmark/counts/search_work.py``).
 
-Then one JSON line describing the six kernels (the step kernel's launches
-counted over phases 4, 11, 13, 16, 17, 19, 20 and 21, the table kernels'
-over phases 7, 11 and 18, the n-tuple kernels' over phase 21), and the
-result line.
+Then one JSON line describing the seven kernels (the step kernel's launches
+counted over phases 4, 11, 13, 16, 17, 19, 20, 21 and 22, the table
+kernels' over phases 7, 11 and 18, the n-tuple kernels' over phase 21, the
+search's over phase 22), and the result line.
 
 Phase 13's ``train dqn`` also writes env 0's ``--debug-csv`` (the
 reference's header, one row a vector step) under ``--watchdog``, and
@@ -364,6 +376,14 @@ DQN_NARROW_LOSS_RTOL = 1e-4
 # weights; a lookup left out or misread moves it by a weight, ~1.
 NT_LANES, NT_CHUNK, NT_EPISODES, NT_EVAL_GAMES = 8192, 128, 16384, 2048
 NT_RTOL = 1e-5
+# The search phase (22): depth-3 eval's games at batch 512 (the cell
+# ntuple_eval_expectimax's); the table's fill as that cell trains it
+# (256 chunks of 8,192 lanes x 128 steps: 268,435,456 lane-steps); the
+# steps of a depth-3 call whose roots are timed. Card against plain: a
+# value is sums of lookups and of chance children in other orders, float32
+# rounding as phase 21's.
+SEARCH_DEPTH, SEARCH_GAMES, SEARCH_FILL_CHUNKS = 3, 512, 256
+SEARCH_TIMING_STEPS = (0, 64, 192)
 # Card against CPU, narrow trainer: the shaped reward's log2 and pow may
 # round one float32 ulp apart on the two devices, and the TD updates carry
 # that on (the CPU tests hold the port to JAX at the same tolerance).
@@ -3867,6 +3887,221 @@ def phase_ntuple(sk, torch, device):
     return launches["step"], entries
 
 
+def search_equal(nk, net, torch, device):
+    """Phase 22's checks of the search kernels against the plain version at
+    unit-normal weights; returns the largest value gap."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    net.weights.normal_(generator=gen)
+    b, worst = SEARCH_GAMES, 0.0
+    counter = nk.leaf_counter(device)
+    for name, empty_below in (("early", 9), ("mid", 4), ("late", 2)):
+        boards = nt_boards(torch, gen, b, device, empty_below)
+        for depth in (2, 3):
+            before = int(counter)
+            got = nk.search_values(boards, net.weights, net.maps, depth)
+            leaves = int(counter) - before
+            want, plain_leaves = nk.plain_search_values(
+                boards, net.weights, net.maps, depth)
+            legal = torch.isfinite(want.values)
+            if leaves != plain_leaves:
+                fail(f"search: {leaves} leaves, plain {plain_leaves} "
+                     f"({name}, depth {depth})")
+            if not torch.equal(torch.isfinite(got.values), legal):
+                fail(f"search: -inf where a move is legal, or a value where "
+                     f"it is not ({name}, depth {depth})")
+            gap = nt_gap(torch, got.values[legal], want.values[legal])
+            top = want.values.topk(2, 0).values
+            near = (top[0] - top[1]) <= 2 * NT_RTOL * top[0].abs().clamp_min(
+                1)
+            differ = got.action != want.action
+            if gap > NT_RTOL or bool((differ & ~near).any()):
+                fail(f"search: values {gap:.3g} from plain (limit "
+                     f"{NT_RTOL}), {int((differ & ~near).sum())} actions "
+                     f"apart from near ties ({name}, depth {depth})")
+            worst = max(worst, gap)
+            print(f"phase 22: search at B={b}, {name} boards, depth "
+                  f"{depth}: {leaves} leaves = plain's; values {gap:.3g} of "
+                  f"max(1, |v|) from plain; {int(differ.sum())} actions "
+                  f"differ, all near ties")
+    return worst
+
+
+def search_table(torch, device):
+    """The 4x6-tuple network trained from zero as the cell fills its
+    table."""
+    from tpu2048_torch.env import fast as fastlib
+    from tpu2048_torch.models.ntuple import NTupleNetwork
+    from tpu2048_torch.training import ntuple as ntrain
+
+    config = ntrain.NTupleTrainConfig(batch_size=NT_LANES,
+                                      steps_per_chunk=NT_CHUNK)
+    net = NTupleNetwork(device=device)
+    bits = fastlib.GeneratorBits(SEED + 22, device)
+    st = ntrain.init_train_state(config, bits)
+    t0 = time.perf_counter()
+    for _ in range(SEARCH_FILL_CHUNKS):
+        st = ntrain.train_chunk(config, net, st, bits)
+    torch.cuda.synchronize()
+    print(f"phase 22: table filled by {SEARCH_FILL_CHUNKS} chunks of "
+          f"{NT_LANES} lanes x {NT_CHUNK} steps in "
+          f"{time.perf_counter() - t0:.2f} s: {int(st.episodes_done)} games, "
+          f"best tile {int(st.best_tile)}, "
+          f"{int(net.weights.count_nonzero())} weights touched")
+    return net
+
+
+def search_path(sk, nk, torch, net):
+    """``eval --policy ntuple --search-depth 3`` through the CLI on the
+    trained table; returns the step kernel's and the search's launches."""
+    from tpu2048_torch.cli.main import main as cli_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = f"{tmp}/nt.npz"
+        net.save(weights)
+        for fn in (nk.afterstate_values, nk.search_values,
+                   sk.fused_env_step):
+            fn.launches = 0
+        rc, summary = run_cli(cli_main, [
+            "eval", "--policy", "ntuple", "--weights", weights,
+            "--search-depth", str(SEARCH_DEPTH), "--games",
+            str(SEARCH_GAMES), "--eval-batch", str(SEARCH_GAMES), "--seed",
+            str(SEED)])
+    if rc != 0:
+        fail(f"eval --policy ntuple --search-depth {SEARCH_DEPTH} returned "
+             f"{rc}")
+    n = summary["batch_steps"]
+    launches = dict(search=nk.search_values.launches,
+                    step=sk.fused_env_step.launches,
+                    value=nk.afterstate_values.launches)
+    if launches != dict(search=2 * n, step=n, value=0):
+        fail(f"eval --search-depth {SEARCH_DEPTH}: launches {launches} in "
+             f"{n} steps")
+    print(f"phase 22: eval --policy ntuple --search-depth {SEARCH_DEPTH}, "
+          f"{summary['games']} games: mean score {summary['score_mean']:.1f}"
+          f", 2048 in {100 * summary['win_rate_2048']:.1f}%, best tile "
+          f"{summary['best_tile']}, mean length {summary['length_mean']:.1f}"
+          f"; launches {launches} in {n} batched steps, "
+          f"{summary['seconds']:.2f} s ({1e3 * summary['seconds'] / n:.3f} "
+          "ms a step)")
+    return launches["step"], launches["search"]
+
+
+def search_timing(nk, net, torch):
+    """The search at the roots of some steps of a depth-3 call: eager,
+    device only, host time a call, one plain call, the bound; returns the
+    rows."""
+    from benchmark.counts import search_work
+    from tpu2048_torch.env import fast as fastlib
+    from tpu2048_torch.eval import evaluate as ev
+    from tpu2048_torch.ops.step_kernel import to_cell_major
+
+    search = ev.expectimax_ntuple_policy(net, SEARCH_DEPTH)
+    roots = []
+
+    def recorded(params, boards, legal):
+        roots.append(boards)
+        return search(boards, legal)
+
+    ev.evaluate(ev.Policy(fn=recorded), SEARCH_GAMES,
+                fastlib.GeneratorBits(SEED + 1, net.device),
+                batch_size=SEARCH_GAMES, max_steps=max(SEARCH_TIMING_STEPS),
+                engine="fast")
+    counter = nk.leaf_counter(net.device)
+    patterns = [list(p) for p in net.patterns]
+    rows = []
+    for step in SEARCH_TIMING_STEPS:
+        if step >= len(roots):
+            continue
+        boards = to_cell_major(roots[step].to(torch.int8))
+
+        def fn():
+            return nk.search_values(boards, net.weights, net.maps,
+                                    SEARCH_DEPTH)
+
+        before = int(counter)
+        fn()
+        leaves = int(counter) - before
+        ms = elapsed_ms(torch, fn, 20)
+        dev = graph_ms(torch, fn, 10)
+        host = host_us(torch, {"search": fn}, n=200)["search"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nk.plain_search_values(boards, net.weights, net.maps, SEARCH_DEPTH)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        work = search_work.step_work(
+            roots[step].reshape(-1, 16).to(torch.int64), patterns,
+            SEARCH_DEPTH)
+        n_bytes = search_work.search_bytes(SEARCH_GAMES,
+                                           work["distinct_weights"])
+        n_ops = search_work.search_ops(work["distinct_leaves"],
+                                       net.lookups)
+        least, term = search_work.least_s(n_bytes, n_ops)
+        if work["leaves"] != leaves:
+            fail(f"search: counter {leaves} leaves, enumeration "
+                 f"{work['leaves']} at step {step}")
+        row = dict(step=step, leaves=leaves, ms=ms, graph_ms=dev,
+                   host_us=host, plain_ms=plain_ms, bound_ms=least * 1e3,
+                   bound_by=term, ns_per_leaf=dev * 1e6 / leaves,
+                   distinct_leaves=work["distinct_leaves"],
+                   distinct_weights=work["distinct_weights"])
+        rows.append(row)
+        print(f"phase 22: search at step {step}'s {SEARCH_GAMES} roots, "
+              f"depth {SEARCH_DEPTH}, trained table: {leaves} leaves "
+              f"({work['distinct_leaves']} distinct in their trees, "
+              f"{work['distinct_weights']} distinct weights); {ms:.4f} ms "
+              f"eager, {dev:.4f} ms device (graph), host {host:.1f} us a "
+              f"call, plain {plain_ms:.1f} ms; {row['ns_per_leaf']:.4f} ns "
+              f"a leaf; bound {least * 1e3:.4g} ms ({term}, "
+              f"{100 * least * 1e3 / dev:.2f}% of it)")
+    return rows
+
+
+def phase_search(sk, torch, device):
+    """Phase 22; returns the step kernel's launches and the kernels-line
+    entry."""
+    from tpu2048_torch.models.ntuple import NTupleNetwork
+    from tpu2048_torch.ops import ntuple_kernel as nk
+
+    t0 = time.perf_counter()
+    nk.SEARCH_LIBRARY.load()
+    print(f"phase 22: search kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in nk.SEARCH_LIBRARY.path().with_suffix(".log").read_text() \
+            .splitlines():
+        if "expectimax" in line or "Used" in line:
+            print(f"phase 22: nvcc, search kernels: {line.strip()}")
+    net = NTupleNetwork(device=device)
+    gap = search_equal(nk, net, torch, device)
+    del net
+    net = search_table(torch, device)
+    step_launches, launches = search_path(sk, nk, torch, net)
+    rows = search_timing(nk, net, torch)
+    row = rows[0]
+    entry = dict(name="expectimax_search", route="cuda",
+                 source="tpu2048_torch/csrc/expectimax_kernel.cu",
+                 replaces=None, launches=launches, max_rel_err=gap,
+                 ms=row["ms"], graph_ms=row["graph_ms"],
+                 host_us=row["host_us"], plain_ms=row["plain_ms"],
+                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                 library_ms=None, library_graph_ms=None)
+    return step_launches, entry
+
+
+def search_only(torch):
+    """Phases 1, 2 (the search source) and 22 alone."""
+    sys.path.insert(0, str(REPO))
+    from tpu2048_torch.ops import step_kernel as sk
+
+    device = torch.device("cuda", 0)
+    print(f"phase 1: card: {card_line()}")
+    print(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    sk.LIBRARY.load()
+    _, entry = phase_search(sk, torch, device)
+    print(json.dumps({"kernels": [entry]}))
+
+
 def ntuple_only(torch):
     """Phases 1, 2 (the n-tuple source) and 21 alone."""
     sys.path.insert(0, str(REPO))
@@ -3889,11 +4124,12 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
     usage = ("usage: chip_smoke.py [--table-timing ROOT | --step-timing "
-             "ROOT | --ntuple]")
+             "ROOT | --ntuple | --search]")
     timing = {"--table-timing": table_timing_only,
               "--step-timing": step_timing_only}
-    if sys.argv[1:] == ["--ntuple"]:
-        ntuple_only(torch)
+    only = {"--ntuple": ntuple_only, "--search": search_only}
+    if len(sys.argv) == 2 and sys.argv[1] in only:
+        only[sys.argv[1]](torch)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3959,6 +4195,7 @@ def main():
                                        loop_row)
     tensor_launches = phase_tensor_parallel(torch, device)
     ntuple_launches, ntuple_entries = phase_ntuple(sk, torch, device)
+    search_launches, search_entry = phase_search(sk, torch, device)
 
     def table_entry(name, line, launches, err):
         row = table_rows[name]
@@ -3981,7 +4218,7 @@ def main():
             "replaces": "tpu2048/ops/pallas_step.py:308",
             "launches": launches + path_launches["step"] + dqn_launches
             + fused_launches + legacy_launches + parallel_launches
-            + tensor_launches + ntuple_launches,
+            + tensor_launches + ntuple_launches + search_launches,
             "max_abs_err": max_err,
             "ms": main_row["ms"],
             "graph_ms": main_row["graph_ms"],
@@ -4015,6 +4252,7 @@ def main():
             "library_graph_ms": None,
         },
         *ntuple_entries,
+        search_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -21,6 +21,10 @@ the spawn. One step of every lane (:func:`evaluate`, then :func:`learn`):
 
 The taken afterstate, and whether the env step after it ended the game,
 become the lane's previous afterstate.
+
+Played by search (:func:`expectimax_actions`), the network values the
+leaves of a depth-D expectimax over the spawns' chance nodes, as the
+published n-tuple agents are played; depth 1 is the greedy policy.
 """
 
 from __future__ import annotations
@@ -87,3 +91,20 @@ def greedy_actions(net: NTupleNetwork, boards: torch.Tensor) -> torch.Tensor:
     where no move is legal)."""
     lanes = init_lanes(boards.shape[0], boards.device)
     return evaluate(net, to_cell_major(boards.to(torch.int8)), lanes).action
+
+
+def expectimax_search(net: NTupleNetwork, boards: torch.Tensor,
+                      depth: int) -> nk.Search:
+    """Depth-``depth`` expectimax, depth 2 or 3, on ``(B, 4, 4)`` boards
+    (:func:`tpu2048_torch.ops.ntuple_kernel.search_values`: two launches on
+    the card), in the span ``ntuple.search``: the ``(4, B)`` root values
+    and the ``(B,)`` int32 actions. Depth 1 is :func:`greedy_actions`."""
+    with annotate("ntuple.search"):
+        return nk.search_values(to_cell_major(boards.to(torch.int8)),
+                                net.weights, net.maps, depth)
+
+
+def expectimax_actions(net: NTupleNetwork, boards: torch.Tensor,
+                       depth: int) -> torch.Tensor:
+    """:func:`expectimax_search`'s ``(B,)`` int32 actions."""
+    return expectimax_search(net, boards, depth).action

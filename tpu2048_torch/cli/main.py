@@ -8,7 +8,9 @@ dqn --checkpoint-dir DIR`` trains the DQN and checkpoints its whole loop
 state there (``--resume`` continues it). ``python -m tpu2048_torch eval
 --policy tabular --table q.npz``, ``--policy model --checkpoint-dir DIR
 [--step N | --named NAME]`` or ``--policy model --params FILE.npz`` plays
-greedy games, ``--policy random`` (the default) random-legal ones on the
+greedy games, ``--policy ntuple --weights w.npz`` the n-tuple network's
+(``--search-depth D`` plays it by depth-D expectimax over the spawns),
+``--policy random`` (the default) random-legal ones on the
 rollout kernel, and prints ``EvalResult.summary()`` as JSON; ``--engine
 lax`` plays (and trains) on the classic env instead of the env kernels.
 ``python -m tpu2048_torch demo --mode manual|random|model`` plays one game
@@ -405,10 +407,11 @@ def _tabular_policy(args, device):
 
 
 def _ntuple_policy(args, device):
-    from tpu2048_torch.eval.evaluate import greedy_ntuple_policy
+    from tpu2048_torch.eval.evaluate import expectimax_ntuple_policy
     from tpu2048_torch.models.ntuple import NTupleNetwork
 
-    return greedy_ntuple_policy(NTupleNetwork.load(args.weights, device))
+    return expectimax_ntuple_policy(NTupleNetwork.load(args.weights, device),
+                                    args.search_depth)
 
 
 def cmd_eval(args) -> int:
@@ -421,6 +424,12 @@ def cmd_eval(args) -> int:
         return 2
     if args.policy == "ntuple" and not args.weights:
         print("--weights required for --policy ntuple", file=sys.stderr)
+        return 2
+    if args.search_depth != 1 and args.policy != "ntuple":
+        print("--search-depth needs --policy ntuple", file=sys.stderr)
+        return 2
+    if not 1 <= args.search_depth <= 3:
+        print("--search-depth must lie in [1, 3]", file=sys.stderr)
         return 2
 
     from tpu2048_torch.env.env import EnvConfig, GeneratorSpawns
@@ -777,6 +786,9 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--weights", type=str, default=None,
                     help="n-tuple network .npz for --policy ntuple "
                          "(train ntuple --save)")
+    pe.add_argument("--search-depth", type=int, default=1,
+                    help="--policy ntuple: max layers of the expectimax "
+                         "over the spawns, 1 to 3 (1 = greedy)")
     pe.add_argument("--games", type=int, default=512)
     pe.add_argument("--eval-batch", type=int, default=512)
     pe.add_argument("--reward", choices=["simple", "shaped"],

@@ -137,6 +137,24 @@ def greedy_ntuple_policy(net) -> Policy:
     return Policy(fn=_greedy_ntuple, params=net)
 
 
+def _expectimax_ntuple(params, boards, legal_mask):
+    net, depth = params
+    return ntuple_agent.expectimax_actions(net, boards, depth)
+
+
+def expectimax_ntuple_policy(net, depth: int) -> Policy:
+    """The n-tuple network played by depth-``depth`` expectimax over the
+    spawns' chance nodes (:func:`tpu2048_torch.agents.ntuple.
+    expectimax_actions`: the search kernels on the card); depth 1 is
+    :func:`greedy_ntuple_policy`, which it returns."""
+    if not 1 <= depth <= ntuple_agent.nk.MAX_DEPTH:
+        raise ValueError(f"search depth must lie in [1, "
+                         f"{ntuple_agent.nk.MAX_DEPTH}], not {depth}")
+    if depth == 1:
+        return greedy_ntuple_policy(net)
+    return Policy(fn=_expectimax_ntuple, params=(net, depth))
+
+
 @dataclasses.dataclass
 class EvalResult:
     scores: np.ndarray  # (N,) final episode merge scores

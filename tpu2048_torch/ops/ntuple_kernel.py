@@ -1,11 +1,14 @@
 """The n-tuple network's kernels: the afterstate values of every move of
-every lane, and the TD(0) update of the lanes' previous afterstates.
+every lane, the TD(0) update of the lanes' previous afterstates, and the
+depth-D expectimax search over the spawns' chance nodes.
 
 :func:`afterstate_values` and :func:`td_update_` launch the CUDA kernels of
-``csrc/ntuple_kernel.cu`` on CUDA tensors and run :func:`plain_afterstate_
-values` and :func:`plain_td_update_`, the same functions in plain PyTorch,
-on CPU tensors. There is no fallback from the card to the plain versions.
-They replace no kernel of the JAX package, which has no n-tuple network.
+``csrc/ntuple_kernel.cu``, and :func:`search_values` those of
+``csrc/expectimax_kernel.cu``, on CUDA tensors; on CPU tensors they run
+:func:`plain_afterstate_values`, :func:`plain_td_update_` and
+:func:`plain_search_values`, the same functions in plain PyTorch. There is
+no fallback from the card to the plain versions. They replace no kernel of
+the JAX package, which has no n-tuple network.
 
 Boards are cell-major ``(16, B)`` int8 exponents, as the fast env holds
 them. The weights are :class:`tpu2048_torch.models.ntuple.NTupleNetwork`'s
@@ -224,3 +227,146 @@ def td_update_(weights, counts, maps, prev_after, prev_valid, v_prev,
 
 
 td_update_.launches = 0
+
+
+# -- the expectimax search ---------------------------------------------------
+
+# Mirrors of csrc/expectimax_kernel.cu: a chance node's children at most
+# (kChildren: 15 empty cells x 2 tiles), the depths the kernels take
+# (kMinDepth, kMaxDepth: depth 1 is the greedy policy, played by
+# afterstate_values), and the spawn's law (kP2, kP4): child j puts exponent j % 2 + 1 on the
+# (j // 2)-th empty cell with probability SPAWN_P[j % 2] over the cells.
+CHILDREN = 30
+MIN_DEPTH, MAX_DEPTH = 2, 3
+SPAWN_P = (0.9, 0.1)
+# Roots that the plain version expands at once: a depth-3 tree has up to
+# 57,600 leaves.
+PLAIN_ROOTS = 32
+
+
+class Search(NamedTuple):
+    """One depth-D search of every lane."""
+
+    values: torch.Tensor  # (4, B) f32: r + C_1 of each move, -inf illegal
+    action: torch.Tensor  # (B,) int32: the first maximum, 0 where none legal
+
+
+def _chance_children(after):
+    """The chance children of ``(N, 16)`` afterstates: ``(N, CHILDREN, 16)``
+    boards, each child's ``p_t / n`` (0 where it does not exist) and
+    whether it exists (its cell below the ``n`` empty ones)."""
+    empty = after == 0
+    n = empty.sum(1, keepdim=True)
+    rank = empty.cumsum(1) - 1
+    j = torch.arange(CHILDREN, device=after.device)
+    hit = empty[:, None, :] & (rank[:, None, :] == (j // 2)[None, :, None])
+    kids = torch.where(hit, (j % 2 + 1).to(after.dtype)[None, :, None],
+                       after[:, None, :])
+    p = torch.tensor(SPAWN_P, dtype=torch.float32, device=after.device)
+    exists = (j // 2)[None] < n
+    weight = torch.where(exists, p[j % 2] / n.to(torch.float32), 0.0)
+    return kids, weight, exists
+
+
+def _max_layer(weights, maps, boards, level: int, depth: int):
+    """``(4, N)`` ``r + C_level`` of each move of ``(N, 16)`` int8 boards
+    (-inf where illegal), and the leaves valued below them."""
+    n = boards.shape[0]
+    after, reward, legal = board_ops.move_all(boards.view(n, 4, 4))
+    after = after.reshape(4, n, 16)
+    if level == depth:
+        chance = _values(weights, maps, after.reshape(4 * n, 16)).view(4, n)
+        leaves = int(legal.sum())
+    else:
+        kids, weight, exists = _chance_children(after[legal])
+        q, leaves = _max_layer(weights, maps, kids[exists], level + 1, depth)
+        m = torch.where(q.isfinite().any(0), q.max(0).values, 0.0)
+        below = weight.new_zeros(exists.shape)
+        below[exists] = m
+        chance = weight.new_zeros((4, n))
+        chance[legal] = (weight * below).sum(1)
+    q = torch.where(legal, reward.to(torch.float32) + chance, -torch.inf)
+    return q, leaves
+
+
+def plain_search_values(boards, weights, maps, depth: int):
+    """The search kernels' function in plain PyTorch, level by level over
+    blocks of ``PLAIN_ROOTS`` roots: ``(Search, leaves)``, the leaves the
+    trees valued. Arguments are those of :func:`search_values`."""
+    roots = from_cell_major(boards).reshape(-1, 16)
+    out, leaves = [], 0
+    for i in range(0, roots.shape[0], PLAIN_ROOTS):
+        q, n = _max_layer(weights, maps, roots[i:i + PLAIN_ROOTS], 1, depth)
+        out.append(q)
+        leaves += n
+    values = torch.cat(out, 1)
+    return Search(values=values,
+                  action=values.max(0).indices.to(torch.int32)), leaves
+
+
+def _declare_search(lib: ctypes.CDLL) -> None:
+    fn = lib.tpu2048_ntuple_search
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+# The source includes ntuple_kernel.cu (its lookups) and so step_kernel.cu
+# (its moves): the build's name hashes all three.
+SEARCH_LIBRARY = CudaLibrary("expectimax_kernel.cu", _declare_search)
+# The leaf counters, one a device, made at first use.
+_LEAF_COUNTERS = {}
+
+
+def leaf_counter(device) -> torch.Tensor:
+    """The ``(1,)`` int64 count of the leaves that the searches on
+    ``device`` valued since the process started: a legal move at the last
+    max layer of a tree is one leaf. It lives on ``device``, and the
+    kernels add to it there, so reading it waits for them."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counter = _LEAF_COUNTERS.get(device)
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int64, device=device)
+        _LEAF_COUNTERS[device] = counter
+    return counter
+
+
+def search_values(boards, weights, maps, depth: int) -> Search:
+    """Depth-``depth`` expectimax of every lane over the spawns' chance
+    nodes, valued by the n-tuple network at the leaves (``csrc/
+    expectimax_kernel.cu`` has the equations): each move's ``r + C_1``
+    and the first maximum, at depth 2 or 3 (depth 1 is
+    :func:`afterstate_values`' greedy choice). The leaves valued are added
+    to :func:`leaf_counter`.
+
+    A CPU tensor runs :func:`plain_search_values`; a CUDA tensor launches
+    the two kernels on PyTorch's current stream (counted in
+    ``search_values.launches``) or raises."""
+    b, index = _check_lanes(boards)
+    n, k = _check_net(weights, maps, boards, index)
+    if not MIN_DEPTH <= depth <= MAX_DEPTH:
+        raise ValueError(f"depth must lie in [{MIN_DEPTH}, {MAX_DEPTH}], "
+                         f"not {depth}")
+    counter = leaf_counter(boards.device)
+    if index < 0:
+        out, leaves = plain_search_values(boards, weights, maps, depth)
+        counter += leaves
+        return out
+    out = Search(values=weights.new_empty((4, b)),
+                 action=torch.empty(b, dtype=torch.int32,
+                                    device=boards.device))
+    scratch = weights.new_empty((4 * CHILDREN, b))
+    err = SEARCH_LIBRARY.load().tpu2048_ntuple_search(
+        boards.data_ptr(), weights.data_ptr(), maps.data_ptr(), n, k, depth,
+        scratch.data_ptr(), out.values.data_ptr(), out.action.data_ptr(),
+        counter.data_ptr(), b, index, _stream(index))
+    if err != 0:
+        raise RuntimeError(f"search kernel launch failed: CUDA error {err}")
+    search_values.launches += 2
+    return out
+
+
+search_values.launches = 0
