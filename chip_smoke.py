@@ -232,9 +232,11 @@ runs phases 1, 2 and 21 alone, ``--search`` phases 1, 2 and 22.
     table trained as the cell ``ntuple_eval_expectimax`` fills it: ``eval
     --policy ntuple --search-depth 3`` through ``tpu2048_torch.cli.main``
     (512 games at batch 512; two search launches and one step kernel a
-    batched step, no afterstate launch), and the search timed at the roots of steps 0, 64 and 192 of a depth-3 call
-    (eager, device only from a CUDA graph, the host time of a call, one
-    plain call) beside its bound (``benchmark/counts/search_work.py``).
+    batched step, no afterstate launch, the leaf runs derived once for the
+    network), and the search timed at the roots of steps 0, 64 and 192 of
+    a depth-3 call (eager, device only from a CUDA graph, the host time of
+    a call, one plain call) beside its bound
+    (``benchmark/counts/search_work.py``).
 
 Then one JSON line describing the seven kernels (the step kernel's launches
 counted over phases 4, 11, 13, 16, 17, 19, 20, 21 and 22, the table
@@ -3961,6 +3963,7 @@ def search_path(sk, nk, torch, net):
         for fn in (nk.afterstate_values, nk.search_values,
                    sk.fused_env_step):
             fn.launches = 0
+        nk.leaf_runs.derivations = 0
         rc, summary = run_cli(cli_main, [
             "eval", "--policy", "ntuple", "--weights", weights,
             "--search-depth", str(SEARCH_DEPTH), "--games",
@@ -3976,11 +3979,16 @@ def search_path(sk, nk, torch, net):
     if launches != dict(search=2 * n, step=n, value=0):
         fail(f"eval --search-depth {SEARCH_DEPTH}: launches {launches} in "
              f"{n} steps")
+    derivations = nk.leaf_runs.derivations
+    if derivations != 1:
+        fail(f"eval --search-depth {SEARCH_DEPTH}: the leaf runs derived "
+             f"{derivations} times for one network")
     print(f"phase 22: eval --policy ntuple --search-depth {SEARCH_DEPTH}, "
           f"{summary['games']} games: mean score {summary['score_mean']:.1f}"
           f", 2048 in {100 * summary['win_rate_2048']:.1f}%, best tile "
           f"{summary['best_tile']}, mean length {summary['length_mean']:.1f}"
-          f"; launches {launches} in {n} batched steps, "
+          f"; launches {launches} in {n} batched steps, leaf runs "
+          f"derived {derivations} time(s), "
           f"{summary['seconds']:.2f} s ({1e3 * summary['seconds'] / n:.3f} "
           "ms a step)")
     return launches["step"], launches["search"]
@@ -4069,7 +4077,7 @@ def phase_search(sk, torch, device):
           f"{time.perf_counter() - t0:.2f} s")
     for line in nk.SEARCH_LIBRARY.path().with_suffix(".log").read_text() \
             .splitlines():
-        if "expectimax" in line or "Used" in line:
+        if any(word in line for word in ("expectimax", "Used", "spill")):
             print(f"phase 22: nvcc, search kernels: {line.strip()}")
     net = NTupleNetwork(device=device)
     gap = search_equal(nk, net, torch, device)

@@ -15,14 +15,20 @@ apart than ten times that; elsewhere it must lie within that of the best
 (the mirrored moves of a two-tile board tie exactly). Integer results
 (legality, the leaves counted) are exact.
 
-The ``card`` case holds the kernels to the plain version on a CUDA card and
-skips without one. This file imports nothing of JAX, so it runs on the
+The unit kernel reads a leaf's lookup indices from the board's eight
+symmetric images and each pattern's runs (``leaf_runs``): a plain twin of
+that arithmetic is held to ``lut_indices`` exactly, at pattern sets of 1
+to 7 cells.
+
+The ``card`` cases hold the kernels to the plain version on a CUDA card and
+skip without one. This file imports nothing of JAX, so it runs on the
 machine with the card: ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_ntuple_search.py -m card``.
 """
 
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -253,6 +259,162 @@ def test_eval_search_depth_from_the_command_line(tmp_path, capsys):
                      "--search-depth", "2"]) == 2
 
 
+# -- the leaf's indices from the board's symmetric images --------------------
+
+# Pattern sets of 1 to 7 cells: runs, scattered cells, runs out of order
+# (a left shift) and runs that start past cell 8 (a shift of 32 bits or
+# more). The single cells cover every cell of every image.
+RUN_SETS = {
+    "4x6": model.PATTERNS_4X6,
+    "small": SMALL,
+    "cells_0_7": tuple((c,) for c in range(8)),
+    "cells_8_15": tuple((c,) for c in range(8, 16)),
+    "pairs": ((14, 15), (3, 12), (1, 0)),
+    "scattered": ((0, 5, 10), (3, 6, 9), (15, 11, 7), (12, 1, 14)),
+    "out_of_order": ((4, 0, 1, 2, 3), (15, 10, 11, 5, 6)),
+    "seven": ((0, 1, 2, 3, 4, 5, 6), (9, 10, 11, 12, 13, 14, 15),
+              (8, 4, 5, 6, 0, 1, 2)),
+}
+
+
+def shr(x, n):
+    """``x >> n`` of int64 tensors read as 64 unsigned bits."""
+    return x if n == 0 else (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def pack(boards):
+    """The kernel's packed board: exponents clipped at 15, a nibble a cell,
+    cell 0 lowest (int64 bits)."""
+    e = boards.to(torch.int64).clamp(0, nk.MAX_EXPONENT)
+    out = torch.zeros(boards.shape[0], dtype=torch.int64)
+    for i in range(16):
+        out |= e[:, i] << (4 * i)
+    return out
+
+
+def transpose(b):
+    t = (b ^ shr(b, 12)) & 0x0000F0F00000F0F0
+    b = b ^ t ^ (t << 12)
+    t = (b ^ shr(b, 24)) & 0x00000000FF00FF00
+    return b ^ t ^ (t << 24)
+
+
+def flip_rows(b):
+    def swap(w):
+        return shr(w, 16) | ((w & 0xFFFF) << 16)
+    return (swap(b & 0xFFFFFFFF) << 32) | swap(shr(b, 32))
+
+
+def mirror_rows(b):
+    bytes_ = 0x00FF00FF00FF00FF
+    nibbles = 0x0F0F0F0F0F0F0F0F
+    b = (shr(b, 8) & bytes_) | ((b & bytes_) << 8)
+    return (shr(b, 4) & nibbles) | ((b & nibbles) << 4)
+
+
+def images(b):
+    """The kernel's eight images of the packed boards, in its order."""
+    t = transpose(b)
+    return [b, flip_rows(t), flip_rows(mirror_rows(b)), mirror_rows(t), t,
+            flip_rows(b), flip_rows(mirror_rows(t)), mirror_rows(b)]
+
+
+def run_indices(boards, maps):
+    """``csrc/expectimax_kernel.cu``'s leaf indices in plain PyTorch: ``(B,
+    L)`` flat indices of the ``(B, 16)`` boards' lookups, from their images
+    and ``leaf_runs(maps)``."""
+    runs = nk.leaf_runs(maps)
+    n, k = maps.shape
+    x = images(pack(boards))
+    out = []
+    for p in range(n // nk.SYMMETRIES):
+        for s in range(nk.SYMMETRIES):
+            local = torch.zeros_like(x[s])
+            for r in range(runs.count[p]):
+                shift, mask = runs.shift[p][r], runs.mask[p][r]
+                if shift >= 0:
+                    local |= shr(x[s], shift) & mask
+                else:
+                    local |= ((x[s] & 0xFFFFFFFF) << -shift) & mask
+            out.append(local + (p << (4 * k)))
+    return torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("name", list(RUN_SETS))
+def test_images_and_runs_give_every_lookup_index(name):
+    """Random boards, exponents to 17 (the indices clip them at 15), and
+    the boards whose top cell sets the packed board's top bit."""
+    net = model.NTupleNetwork(RUN_SETS[name])
+    g = torch.Generator().manual_seed(50)
+    boards = torch.cat([torch.randint(0, 18, (512, 16), generator=g),
+                        torch.full((1, 16), 15), torch.full((1, 16), 17),
+                        torch.arange(16)[None], torch.arange(16).flip(0)[None]])
+    assert torch.equal(run_indices(boards, net.maps),
+                       nk.lut_indices(boards, net.maps))
+
+
+def test_the_4x6_set_takes_six_runs():
+    """One run in each of the first two patterns, two in the others: 48
+    shifts and masks a leaf over the 8 images."""
+    runs = nk.leaf_runs(model.NTupleNetwork().maps)
+    got = [[(runs.shift[p][r], runs.mask[p][r]) for r in range(runs.count[p])]
+           for p in range(4)]
+    assert got == [[(0, 0xFFFFFF)], [(16, 0xFFFFFF)],
+                   [(0, 0xFFF), (4, 0xFFF000)],
+                   [(16, 0xFFF), (20, 0xFFF000)]]
+    assert nk.pattern_runs((4, 0, 1, 2, 3)) == [(0, 4, 1), (1, 0, 4)]
+
+
+def _maps(rows):
+    return torch.tensor(rows, dtype=torch.uint8)
+
+
+def test_leaf_runs_refuse_maps_of_another_form():
+    """The runs read lookup 8p + s as pattern p on image s: maps of any
+    other form raise, on the CPU as on the card."""
+    good = model.index_maps(SMALL)
+    swapped = good.copy()
+    swapped[[1, 2]] = swapped[[2, 1]]
+    changed = good.copy()
+    changed[13, 2] = (changed[13, 2] + 1) % 16
+    rolled = good.copy()
+    rolled[8:16] = np.roll(good[8:16], 1, 0)
+    outside = good.copy()
+    outside[5, 0] = 16
+    for rows in (swapped, changed, rolled, outside):
+        with pytest.raises(ValueError):
+            nk.leaf_runs(_maps(rows))
+    net = random_net(SMALL, 1)
+    with pytest.raises(ValueError):
+        nk.search_values(cell_major(_random(4, 2, 12, 4)), net.weights,
+                         _maps(swapped), 2)
+    # Pattern 1's rows in reverse order are pattern (7, 6, 5, 4)'s.
+    reversed_ = good.copy()
+    reversed_[8:16] = good[8:16][::-1]
+    nk.leaf_runs(_maps(reversed_))
+
+
+def test_leaf_runs_are_derived_once_per_maps_tensor():
+    """Asked twice for one maps tensor, the host derives once; a second
+    tensor is derived anew, and so is one changed in place. A search on
+    the same maps derives nothing more."""
+    net = random_net(SMALL, 2)
+    before = nk.leaf_runs.derivations
+    runs = nk.leaf_runs(net.maps)
+    assert nk.leaf_runs(net.maps) is runs
+    assert nk.leaf_runs.derivations - before == 1
+    boards = cell_major(_random(4, 3, 12, 4))
+    for _ in range(2):
+        nk.search_values(boards, net.weights, net.maps, 2)
+    assert nk.leaf_runs.derivations - before == 1
+    other = net.maps.clone()
+    assert nk.leaf_runs(other) is not runs
+    assert nk.leaf_runs.derivations - before == 2
+    other.copy_(net.maps)
+    nk.leaf_runs(other)
+    assert nk.leaf_runs.derivations - before == 3
+
+
 # -- the reference itself ---------------------------------------------------
 
 def test_reference_imports_only_torch_and_the_ntuple_reference():
@@ -323,3 +485,26 @@ def test_kernels_match_the_plain_version_on_the_card(depth):
     assert leaves == plain_leaves
     assert gap(out.values, plain.values) < REL
     assert_choices(out.action, plain.values, plain.action.long())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ["out_of_order", "pairs", "seven"])
+def test_kernels_take_any_pattern_set_on_the_card(name):
+    """The leaf's runs at other pattern sets (left shifts, shifts past 32
+    bits, seven cells) against the plain version at depths 2 and 3; one
+    derivation of the runs for the network's maps."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card on this machine")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(60)
+    net = model.NTupleNetwork(RUN_SETS[name], dev)
+    net.weights.normal_(generator=g).mul_(10.0)
+    boards = cell_major(_random(128, 61, 18, 4)).to(dev)
+    before = nk.leaf_runs.derivations
+    for depth in (2, 3):
+        out = nk.search_values(boards, net.weights, net.maps, depth)
+        plain, _ = nk.plain_search_values(boards, net.weights, net.maps,
+                                          depth)
+        assert gap(out.values, plain.values) < REL
+        assert_choices(out.action, plain.values, plain.action.long())
+    assert nk.leaf_runs.derivations - before == 1

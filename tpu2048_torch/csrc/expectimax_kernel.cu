@@ -38,13 +38,32 @@
 //
 // What bounds it: a D = 3 tree has up to 4 x 30 x 4 x 30 x 4 = 57,600
 // leaves, so a 512-root step values up to ~30M afterstates, each a move
-// (step_kernel.cu's merge_dir) and 32 lookups (ntuple_kernel.cu's
-// lut_index and sum_lookups: a few integer operations a cell, and a random
-// 4-byte gather into the table). The touched part of a trained table fits
-// the 50 MB L2, so the leaves' integer work and the gathers' latency bound
-// it; the lanes keep sum_lookups' kBatch gathers in flight and the warps
-// of an SM hide the rest. Sibling leaves share most of their lookups,
-// which the kernel reads again (from L1 or L2).
+// (step_kernel.cu's merge_dir) and 32 lookups, each a random 4-byte gather
+// into the table. The touched part of a trained table fits the 50 MB L2,
+// so the leaves' integer work and the gathers' latency bound it. Built
+// cell by cell from shift tables in shared memory (ntuple_kernel.cu's
+// lut_index: a load, a shift by a run-time amount, a mask and an OR a
+// cell), the 32 indices would be about three quarters of a leaf's issued
+// work. So a leaf builds its indices from its board's eight symmetric
+// images (leaf_value): image s holds, at cell x, the board's cell
+// symmetries()[s][x] (ops/ntuple_kernel.py), each image a few bit
+// operations on the packed 64-bit board (a transpose by delta swaps, a
+// flip of the 16-bit rows, a mirror of the nibbles in each row, each image
+// from an earlier one). Lookup 8p + s reads pattern p's own cells on
+// image s, and a pattern's cells fall into runs, adjacent cells at
+// adjacent index places, each one shift and one mask of the image
+// (LeafRuns): 48 a leaf at the 4x6 set, where shift tables take 192
+// loads and shifts. The wrapper derives the runs from the maps once per
+// maps tensor and passes them by value. Every flat index, and the order
+// of the float sums (the lookups in order, 8 gathers at a time, into one
+// accumulator, as sum_lookups adds them), are those of the shift tables,
+// so every value is bit for bit theirs. Sibling leaves share most of their
+// lookups, which the kernel reads again (from L1 or L2). What bounds it
+// then (an H100 at 700 W, 512 roots of depth-3 eval on a trained table):
+// without the gathers the kernel keeps ~94% of its time, without the
+// leaves' valuation (pack, images, runs, gathers) 64-70%. So the tree's
+// own integer work bounds it: the moves (merge_dir on 16 ints, four a max
+// node, legal or not), the spawns and the lists of children.
 
 #include "ntuple_kernel.cu"
 
@@ -53,12 +72,102 @@ namespace {
 constexpr int kChildren = 30;        // a chance node's children, at most
 constexpr int kUnitWarps = 4;        // units a block: one a warp
 constexpr int kUnitThreads = 32 * kUnitWarps;
+// Unit blocks resident on an SM that ptxas budgets registers for: 5 holds
+// the unit kernel to 96 registers a thread, with no spill (the images and
+// runs leave it 128 and 64 bytes of spills unbounded, and slower).
+constexpr int kUnitBlocksPerSM = 5;
 constexpr int kRootThreads = 128;    // roots a block
 constexpr int kMinDepth = 2;
 constexpr int kMaxDepth = 3;
 constexpr float kP2 = 0.9f;          // a spawned 2 (exponent 1)
 constexpr float kP4 = 0.1f;          // a spawned 4 (exponent 2)
 constexpr unsigned kWarp = 0xffffffffu;
+constexpr int kSymmetries = 8;       // lookups a pattern
+constexpr int kMaxPatterns = kMaxLookups / kSymmetries;
+
+// Pattern p's index on an image x: the OR over its runs r < count[p] of
+// (x >> shift[p][r]) & mask[p][r], or (x << -shift[p][r]) & mask[p][r]
+// where the shift is negative, in the low 32 bits
+// (ops/ntuple_kernel.py::leaf_runs derives them from the maps).
+struct LeafRuns {
+  int count[kMaxPatterns];
+  int shift[kMaxPatterns][kMaxCells];
+  unsigned mask[kMaxPatterns][kMaxCells];
+};
+
+// The packed board's 16-bit rows in reverse order: the vertical flip.
+__device__ __forceinline__ uint64_t flip_rows(uint64_t b) {
+  const unsigned lo = static_cast<unsigned>(b);
+  const unsigned hi = static_cast<unsigned>(b >> 32);
+  return (static_cast<uint64_t>(__byte_perm(lo, 0, 0x1032)) << 32) |
+         __byte_perm(hi, 0, 0x1032);
+}
+
+// The four cells of each row in reverse order: the horizontal mirror.
+__device__ __forceinline__ unsigned mirror_rows32(unsigned x) {
+  x = __byte_perm(x, 0, 0x2301);
+  return ((x >> 4) & 0x0F0F0F0Fu) | ((x & 0x0F0F0F0Fu) << 4);
+}
+
+__device__ __forceinline__ uint64_t mirror_rows(uint64_t b) {
+  const unsigned hi = mirror_rows32(static_cast<unsigned>(b >> 32));
+  return (static_cast<uint64_t>(hi) << 32) |
+         mirror_rows32(static_cast<unsigned>(b));
+}
+
+// Cell (r, c) to (c, r): each 2 x 2 block transposed, then the two
+// off-diagonal blocks swapped.
+__device__ __forceinline__ uint64_t transpose(uint64_t b) {
+  uint64_t t = (b ^ (b >> 12)) & 0x0000F0F00000F0F0ull;
+  b ^= t ^ (t << 12);
+  t = (b ^ (b >> 24)) & 0x00000000FF00FF00ull;
+  return b ^ t ^ (t << 24);
+}
+
+// V of the packed board b, bit for bit sum_lookups(w, b, maps, 0, 1, ...)
+// at the maps the runs were derived from: the same flat indices, summed
+// in the same order.
+__device__ __forceinline__ float leaf_value(const float* __restrict__ w,
+                                            uint64_t b, const LeafRuns& runs,
+                                            int patterns, int k) {
+  // Image s holds cell symmetries()[s][x] of b at cell x: the rotations
+  // by 0-3 quarter turns, then those of the transpose.
+  uint64_t x[kSymmetries];
+  x[0] = b;
+  x[4] = transpose(b);
+  x[1] = flip_rows(x[4]);
+  x[3] = mirror_rows(x[4]);
+  x[6] = flip_rows(x[3]);
+  x[5] = flip_rows(b);
+  x[7] = mirror_rows(b);
+  x[2] = flip_rows(x[7]);
+  float acc = 0.f;
+  for (int p = 0; p < patterns; ++p) {
+    unsigned local[kSymmetries] = {};
+    for (int r = 0; r < runs.count[p]; ++r) {
+      const int shift = runs.shift[p][r];
+      const unsigned mask = runs.mask[p][r];
+      if (shift >= 0) {
+#pragma unroll
+        for (int s = 0; s < kSymmetries; ++s) {
+          local[s] |= static_cast<unsigned>(x[s] >> shift) & mask;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < kSymmetries; ++s) {
+          local[s] |= (static_cast<unsigned>(x[s]) << -shift) & mask;
+        }
+      }
+    }
+    const float* table = w + (static_cast<size_t>(p) << (4 * k));
+    float v[kSymmetries];
+#pragma unroll
+    for (int s = 0; s < kSymmetries; ++s) v[s] = __ldg(table + local[s]);
+#pragma unroll
+    for (int s = 0; s < kSymmetries; ++s) acc += v[s];
+  }
+  return acc;
+}
 
 __device__ __forceinline__ int empties(const int c[16]) {
   int n = 0;
@@ -103,8 +212,8 @@ __device__ __forceinline__ int move_to(const int c[16], int nc[16], int d,
 // moves.
 __device__ __forceinline__ float max_leaf(const int c[16],
                                           const float* __restrict__ w,
-                                          const Maps& sh, int n, int k,
-                                          int* leaves) {
+                                          const LeafRuns& runs,
+                                          int patterns, int k, int* leaves) {
   float best = -CUDART_INF_F;
   for (int d = 0; d < 4; ++d) {
     int nc[16];
@@ -112,7 +221,7 @@ __device__ __forceinline__ float max_leaf(const int c[16],
     const int reward = move_to(c, nc, d, &moved);
     if (moved) {
       const float q = static_cast<float>(reward) +
-                      sum_lookups(w, pack(nc), sh, 0, 1, n, k);
+                      leaf_value(w, pack(nc), runs, patterns, k);
       if (q > best) best = q;
       ++*leaves;
     }
@@ -141,14 +250,12 @@ __device__ __forceinline__ void count_block(unsigned long long* counter,
   if (threadIdx.x == 0 && total) atomicAdd(counter, total);
 }
 
-__global__ void __launch_bounds__(kUnitThreads)
+__global__ void __launch_bounds__(kUnitThreads, kUnitBlocksPerSM)
 expectimax_unit_kernel(const int8_t* __restrict__ boards,
                        const float* __restrict__ w,
-                       const uint8_t* __restrict__ maps, int n_lookups, int k,
-                       int depth, float* __restrict__ scratch,
+                       const __grid_constant__ LeafRuns runs, int patterns,
+                       int k, int depth, float* __restrict__ scratch,
                        unsigned long long* __restrict__ leaves, int batch) {
-  __shared__ Maps sh;
-  stage_maps(sh, maps, n_lookups, k);
   const int lane = threadIdx.x % 32;
   const long long unit =
       static_cast<long long>(blockIdx.x) * kUnitWarps + threadIdx.x / 32;
@@ -178,7 +285,7 @@ expectimax_unit_kernel(const int8_t* __restrict__ boards,
       const int reward = move_to(s2, nc, lane, &moved);
       if (moved) {
         q = static_cast<float>(reward) +
-            sum_lookups(w, pack(nc), sh, 0, 1, n_lookups, k);
+            leaf_value(w, pack(nc), runs, patterns, k);
         ++count;
       }
     }
@@ -219,7 +326,7 @@ expectimax_unit_kernel(const int8_t* __restrict__ boards,
         const int j = i - by_dir(d, first[0], first[1], first[2], first[3]);
         spawn_nth(s3, j >> 1, (j & 1) + 1);
         const int n = by_dir(d, n2[0], n2[1], n2[2], n2[3]);
-        x = child_weight(j, n) * max_leaf(s3, w, sh, n_lookups, k, &count);
+        x = child_weight(j, n) * max_leaf(s3, w, runs, patterns, k, &count);
       }
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
@@ -277,19 +384,29 @@ expectimax_root_kernel(const int8_t* __restrict__ boards,
   out_action[root] = action;
 }
 
+bool runs_fit(const LeafRuns& runs, int patterns, int k) {
+  for (int p = 0; p < patterns; ++p) {
+    if (runs.count[p] < 1 || runs.count[p] > k) return false;
+  }
+  return true;
+}
+
 }  // namespace
 
 // Runs one search of depth 2 or 3 on `stream` of device `device`: boards
-// cell-major (16, B) int8; scratch (4 * 30, B) float32; values (4, B)
+// cell-major (16, B) int8; `runs`, in host memory, the LeafRuns of the
+// maps (n_lookups of k cells); scratch (4 * 30, B) float32; values (4, B)
 // float32 and action (B,) int32 out; `leaves` one uint64 that the search
 // adds its leaves to. Returns the first cudaError_t of the launches.
 extern "C" int tpu2048_ntuple_search(const void* boards, const void* weights,
-                                     const void* maps, int n_lookups, int k,
+                                     const void* runs, int n_lookups, int k,
                                      int depth, void* scratch, void* values,
                                      void* action, void* leaves, int batch,
                                      int device, void* stream) {
-  if (!maps_fit(n_lookups, k) || depth < kMinDepth || depth > kMaxDepth ||
-      batch < 1) {
+  const LeafRuns& r = *static_cast<const LeafRuns*>(runs);
+  const int patterns = n_lookups / kSymmetries;
+  if (!maps_fit(n_lookups, k) || !runs_fit(r, patterns, k) ||
+      depth < kMinDepth || depth > kMaxDepth || batch < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = use_device(device);
@@ -297,12 +414,11 @@ extern "C" int tpu2048_ntuple_search(const void* boards, const void* weights,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* b = static_cast<const int8_t*>(boards);
   const float* w = static_cast<const float*>(weights);
-  const uint8_t* m = static_cast<const uint8_t*>(maps);
   unsigned long long* n = static_cast<unsigned long long*>(leaves);
   const long long units = static_cast<long long>(batch) * 4 * kChildren;
   float* child = static_cast<float*>(scratch);
   expectimax_unit_kernel<<<static_cast<int>(units / kUnitWarps), kUnitThreads,
-                           0, s>>>(b, w, m, n_lookups, k, depth, child, n,
+                           0, s>>>(b, w, r, patterns, k, depth, child, n,
                                    batch);
   const cudaError_t launch = cudaGetLastError();
   if (launch != cudaSuccess) return static_cast<int>(launch);

@@ -25,20 +25,12 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from tpu2048_torch.ops.ntuple_kernel import SYMMETRIES, lut_indices
+from tpu2048_torch.ops.ntuple_kernel import (SYMMETRIES, lut_indices,
+                                             symmetries)
 
 # Yeh et al.'s 4x6-tuple network (TDL2048-Demo's patterns).
 PATTERNS_4X6 = ((0, 1, 2, 3, 4, 5), (4, 5, 6, 7, 8, 9),
                 (0, 1, 2, 4, 5, 6), (4, 5, 6, 8, 9, 10))
-
-
-def symmetries() -> np.ndarray:
-    """``(8, 16)``: row ``s`` gives, for each cell, the cell of the board
-    that the ``s``-th transform puts there (4 rotations, then the same of
-    the transposed board)."""
-    grid = np.arange(16).reshape(4, 4)
-    out = [np.rot90(g, k) for g in (grid, grid.T) for k in range(4)]
-    return np.stack([t.reshape(16) for t in out])
 
 
 def index_maps(patterns: Sequence[Sequence[int]]) -> np.ndarray:

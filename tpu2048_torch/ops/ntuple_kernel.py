@@ -21,7 +21,9 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from tpu2048_torch.ops import board as board_ops
 from tpu2048_torch.ops._build import CudaLibrary
@@ -32,7 +34,17 @@ from tpu2048_torch.ops.step_kernel import (_check, _device_index,
 MAX_LOOKUPS = 64
 MAX_CELLS = 7
 SYMMETRIES = 8  # lookups a pattern
+MAX_PATTERNS = MAX_LOOKUPS // SYMMETRIES
 MAX_EXPONENT = 15  # a cell's exponent in an index is clipped here
+
+
+def symmetries() -> np.ndarray:
+    """``(8, 16)``: row ``s`` gives, for each cell, the cell of the board
+    that the ``s``-th transform puts there (4 rotations, then the same of
+    the transposed board)."""
+    grid = np.arange(16).reshape(4, 4)
+    out = [np.rot90(g, k) for g in (grid, grid.T) for k in range(4)]
+    return np.stack([t.reshape(16) for t in out])
 
 
 def lut_indices(boards: torch.Tensor, maps: torch.Tensor) -> torch.Tensor:
@@ -128,12 +140,18 @@ def _declare(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("ntuple_kernel.cu", _declare)
 
 
-def _check_net(weights, maps, boards, index):
-    """Raise unless the weights and maps fit the kernels and lie with the
-    boards; returns ``(L, k)``."""
+def _check_fit(maps):
+    """Raise unless ``maps``' shape fits the kernels; returns ``(L, k)``."""
     n, k = maps.shape
     if not (0 < n <= MAX_LOOKUPS and n % 8 == 0 and 0 < k <= MAX_CELLS):
         raise ValueError(f"maps: {n} lookups of {k} cells do not fit")
+    return n, k
+
+
+def _check_net(weights, maps, boards, index):
+    """Raise unless the weights and maps fit the kernels and lie with the
+    boards; returns ``(L, k)``."""
+    n, k = _check_fit(maps)
     _check("maps", maps, (n, k), torch.uint8, boards, index)
     _check("weights", weights, (n // 8, 16 ** k), torch.float32, boards,
            index)
@@ -304,6 +322,70 @@ def plain_search_values(boards, weights, maps, depth: int):
                   action=values.max(0).indices.to(torch.int32)), leaves
 
 
+class LeafRuns(ctypes.Structure):
+    """``csrc/expectimax_kernel.cu``'s ``LeafRuns``: pattern ``p``'s index
+    on a symmetric image ``x`` of a packed board (a nibble a cell, cell 0
+    lowest) is the OR over its runs ``r < count[p]`` of ``(x >> shift[p][r])
+    & mask[p][r]``, or ``(x << -shift[p][r]) & mask[p][r]`` where the shift
+    is negative, in the low 32 bits."""
+
+    _fields_ = [("count", ctypes.c_int * MAX_PATTERNS),
+                ("shift", (ctypes.c_int * MAX_CELLS) * MAX_PATTERNS),
+                ("mask", (ctypes.c_uint32 * MAX_CELLS) * MAX_PATTERNS)]
+
+
+def pattern_runs(pattern):
+    """The runs of a pattern's cells: ``(place, cell, length)``, its cells
+    ``cell, cell + 1, ...`` at the index's places ``place, place + 1, ...``
+    (nibbles of the index, from the lowest)."""
+    runs = []
+    for place, cell in enumerate(pattern):
+        if runs and cell == runs[-1][1] + runs[-1][2]:
+            runs[-1] = (*runs[-1][:2], runs[-1][2] + 1)
+        else:
+            runs.append((place, cell, 1))
+    return runs
+
+
+# Each maps tensor's (version, LeafRuns), kept while the tensor lives.
+_LEAF_RUNS = WeakIdKeyDictionary()
+
+
+def leaf_runs(maps) -> LeafRuns:
+    """The search kernel's runs of ``maps``, derived on the host once per
+    maps tensor (and again if it changes in place; each derivation counted
+    in ``leaf_runs.derivations``): its one copy to the host. Raises
+    unless row ``8 p + s`` is :func:`symmetries` ``[s]`` of pattern ``p``'s
+    cells (row ``8 p``), the form that ``models/ntuple.py::index_maps``
+    gives: the kernel reads lookup ``8 p + s`` as pattern ``p`` on the
+    board's ``s``-th symmetric image."""
+    cached = _LEAF_RUNS.get(maps)
+    if cached is not None and cached[0] == maps._version:
+        return cached[1]
+    n, k = _check_fit(maps)
+    rows = maps.cpu().numpy().astype(np.int64)
+    if rows.min() < 0 or rows.max() > 15:
+        raise ValueError("maps: a cell outside the board")
+    patterns = rows[::SYMMETRIES]
+    if not np.array_equal(rows, symmetries()[:, patterns].transpose(
+            1, 0, 2).reshape(n, k)):
+        raise ValueError("maps: not each pattern's cells under the 8 "
+                         "symmetries in order (index_maps' form)")
+    runs = LeafRuns()
+    for p, pattern in enumerate(patterns.tolist()):
+        spans = pattern_runs(pattern)
+        runs.count[p] = len(spans)
+        for r, (place, cell, length) in enumerate(spans):
+            runs.shift[p][r] = 4 * (cell - place)
+            runs.mask[p][r] = ((1 << 4 * length) - 1) << 4 * place
+    _LEAF_RUNS[maps] = (maps._version, runs)
+    leaf_runs.derivations += 1
+    return runs
+
+
+leaf_runs.derivations = 0
+
+
 def _declare_search(lib: ctypes.CDLL) -> None:
     fn = lib.tpu2048_ntuple_search
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -340,7 +422,8 @@ def search_values(boards, weights, maps, depth: int) -> Search:
     expectimax_kernel.cu`` has the equations): each move's ``r + C_1``
     and the first maximum, at depth 2 or 3 (depth 1 is
     :func:`afterstate_values`' greedy choice). The leaves valued are added
-    to :func:`leaf_counter`.
+    to :func:`leaf_counter`. ``maps`` has :func:`leaf_runs`' form, whose
+    runs the kernel reads.
 
     A CPU tensor runs :func:`plain_search_values`; a CUDA tensor launches
     the two kernels on PyTorch's current stream (counted in
@@ -350,6 +433,7 @@ def search_values(boards, weights, maps, depth: int) -> Search:
     if not MIN_DEPTH <= depth <= MAX_DEPTH:
         raise ValueError(f"depth must lie in [{MIN_DEPTH}, {MAX_DEPTH}], "
                          f"not {depth}")
+    runs = leaf_runs(maps)
     counter = leaf_counter(boards.device)
     if index < 0:
         out, leaves = plain_search_values(boards, weights, maps, depth)
@@ -360,9 +444,9 @@ def search_values(boards, weights, maps, depth: int) -> Search:
                                     device=boards.device))
     scratch = weights.new_empty((4 * CHILDREN, b))
     err = SEARCH_LIBRARY.load().tpu2048_ntuple_search(
-        boards.data_ptr(), weights.data_ptr(), maps.data_ptr(), n, k, depth,
-        scratch.data_ptr(), out.values.data_ptr(), out.action.data_ptr(),
-        counter.data_ptr(), b, index, _stream(index))
+        boards.data_ptr(), weights.data_ptr(), ctypes.addressof(runs), n, k,
+        depth, scratch.data_ptr(), out.values.data_ptr(),
+        out.action.data_ptr(), counter.data_ptr(), b, index, _stream(index))
     if err != 0:
         raise RuntimeError(f"search kernel launch failed: CUDA error {err}")
     search_values.launches += 2
